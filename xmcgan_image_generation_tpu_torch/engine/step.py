@@ -1,0 +1,37 @@
+"""The outer training step: the n-critic loop over a super-batch (the JAX
+package's ``engine/step.py``)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from xmcgan_image_generation_tpu_torch.engine import xmc_gan
+from xmcgan_image_generation_tpu_torch.engine.state import TrainState
+
+Batch = Dict[str, torch.Tensor]
+
+
+def split_batch(batch: Batch, splits: int) -> List[Batch]:
+  """Splits every tensor of the batch into ``splits`` equal sub-batches."""
+  for k, v in batch.items():
+    if v.shape[0] % splits:
+      raise ValueError(f"batch[{k!r}] of {v.shape[0]} rows does not split "
+                       f"into {splits}")
+  parts = {k: torch.chunk(v, splits) for k, v in batch.items()}
+  return [{k: parts[k][i] for k in batch} for i in range(splits)]
+
+
+def train_step(state: TrainState, batch: Batch, config,
+               additional_data: Dict[str, Any]
+               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+  """One outer step: ``d_step_per_g_step - 1`` D updates, then one joint
+  G+D update, on consecutive sub-batches."""
+  n = config.d_step_per_g_step
+  sub_batches = split_batch(batch, n)
+  for i in range(n - 1):
+    xmc_gan.train_d(state, sub_batches[i], config)
+  metrics = xmc_gan.train_g_d(state, sub_batches[-1], config,
+                              additional_data)
+  return state, metrics

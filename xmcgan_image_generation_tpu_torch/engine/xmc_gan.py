@@ -1,0 +1,148 @@
+"""XMC-GAN update rules (the JAX package's ``engine/xmc_gan.py``, the
+default two-gradient branch with ``grad_accum_steps=1``).
+
+The JAX joint step runs D twice, once per gradient, and leaves XLA to
+merge the two forwards.  Eager PyTorch merges nothing, so here D runs once
+on ``concat(real, fake)`` and two ``torch.autograd.grad`` pulls take
+``d_loss -> D params`` and ``g_loss -> G params``: the reference's
+dual-cotangent form, whose equality with the two-pass form the JAX tests
+show.  The pull of ``d_loss`` reaches no G parameter, so the fake images
+need no detach.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from xmcgan_image_generation_tpu_torch.engine.state import TrainState
+from xmcgan_image_generation_tpu_torch.ops import contrastive as contrastive_ops
+from xmcgan_image_generation_tpu_torch.ops import losses
+from xmcgan_image_generation_tpu_torch.ops.images import image_to_float
+from xmcgan_image_generation_tpu_torch.ops.normalization import (
+    frozen_batch_stats,
+)
+from xmcgan_image_generation_tpu_torch.utils import pretrained
+
+Batch = Dict[str, torch.Tensor]
+
+
+def create_additional_data(config, device) -> Dict[str, Any]:
+  """The frozen towers the configuration asks for."""
+  additional_data = {}
+  if config.pretrained_image_contrastive:
+    additional_data["image_model"] = pretrained.get_pretrained_model(
+        checkpoint_path=config.get("resnet_ckpt_path", ""), device=device)
+  return additional_data
+
+
+def contrastive_totals(stats: Dict[str, torch.Tensor]):
+  """(c_loss_d, c_loss_g): D trains on the real-image heads, G on the
+  fake-image heads plus the fake-vs-real image head."""
+  c_loss_d = stats["real_word_loss"] + stats["real_sentence_loss"]
+  c_loss_g = (stats["fake_word_loss"] + stats["fake_sentence_loss"]
+              + stats["image_contrastive_loss"])
+  return c_loss_d, c_loss_g
+
+
+def pretrained_contrastive(additional_data: Dict[str, Any],
+                           real_images: torch.Tensor,
+                           fake_images: torch.Tensor) -> torch.Tensor:
+  """NT-Xent between the frozen tower's logits of real and fake images.
+
+  The real branch runs without autograd; the fake branch is recomputed in
+  the backward instead of keeping its 224x224 activations.
+  """
+  model = additional_data["image_model"]
+
+  def logits(images):
+    return pretrained.get_pretrained_embs(model, images)[1]
+
+  with torch.no_grad():
+    real_out = logits(real_images)
+  fake_out = checkpoint(logits, fake_images, use_reentrant=False)
+  loss, _, _ = contrastive_ops.nt_xent(real_out, fake_out)
+  return loss
+
+
+def _noise(batch: Batch, dtype) -> torch.Tensor:
+  """The per-example latent, which the port's batches always carry."""
+  if "z" not in batch:
+    raise ValueError("the port draws no z on the device: batches carry 'z'")
+  return batch["z"].to(dtype)
+
+
+def _grads(loss: torch.Tensor, params, retain_graph: bool = False):
+  return torch.autograd.grad(loss, params, retain_graph=retain_graph,
+                             allow_unused=True, materialize_grads=True)
+
+
+def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
+  for p, g in zip(params, grads):
+    p.grad = g
+  opt.step()
+  opt.zero_grad(set_to_none=True)
+
+
+def train_g_d(state: TrainState, batch: Batch, config,
+              additional_data: Optional[Dict[str, Any]] = None
+              ) -> Dict[str, torch.Tensor]:
+  """Joint G+D update on one sub-batch; updates ``state`` in place and
+  returns the five losses."""
+  additional_data = additional_data or {}
+  g_net, d_net = state.generator, state.discriminator
+  g_net.train()
+  d_net.train()
+  g_params = list(g_net.parameters())
+  d_params = list(d_net.parameters())
+
+  real_image = image_to_float(batch["image"])
+  fake_image = g_net(batch, _noise(batch, g_net.dtype))
+  all_images = torch.cat([real_image, fake_image.float()])
+  logit, stats = d_net(all_images, batch)
+  real_logit, fake_logit = logit.float().chunk(2)
+  c_loss_d, c_loss_g = contrastive_totals(stats)
+  c_loss_g_pretrained = torch.zeros((), device=logit.device)
+  if config.pretrained_image_contrastive:
+    c_loss_g_pretrained = pretrained_contrastive(
+        additional_data, real_image, fake_image)
+  d_loss = losses.hinge_d(real_logit, fake_logit) + c_loss_d
+  g_loss = losses.hinge_g(fake_logit) + c_loss_g + c_loss_g_pretrained
+
+  d_grads = _grads(d_loss, d_params, retain_graph=True)
+  g_grads = _grads(g_loss, g_params)
+  _apply(state.d_opt, d_params, d_grads)
+  _apply(state.g_opt, g_params, g_grads)
+
+  decay = config.polyak_decay
+  with torch.no_grad():
+    for name, p in g_net.named_parameters():
+      ema = state.ema_params[name]
+      ema.mul_(decay).add_(p, alpha=1.0 - decay)
+  state.step += 1
+  return dict(d_loss=d_loss.detach(), g_loss=g_loss.detach(),
+              c_loss_d=c_loss_d.detach(), c_loss_g=c_loss_g.detach(),
+              c_loss_g_pretrained=c_loss_g_pretrained.detach())
+
+
+def train_d(state: TrainState, batch: Batch, config) -> None:
+  """Discriminator-only update (an extra critic step), in place.
+
+  G runs forward in train mode without writing its running statistics;
+  D's spectral-norm state advances.
+  """
+  g_net, d_net = state.generator, state.discriminator
+  g_net.train()
+  d_net.train()
+  d_params = list(d_net.parameters())
+  with torch.no_grad(), frozen_batch_stats(g_net):
+    fake_image = g_net(batch, _noise(batch, g_net.dtype))
+  all_images = torch.cat([image_to_float(batch["image"]),
+                          fake_image.float()])
+  logit, stats = d_net(all_images, batch, critic_only=True)
+  real_logit, fake_logit = logit.float().chunk(2)
+  c_loss_d, _ = contrastive_totals(stats)
+  d_loss = losses.hinge_d(real_logit, fake_logit) + c_loss_d
+  _apply(state.d_opt, d_params, _grads(d_loss, d_params))

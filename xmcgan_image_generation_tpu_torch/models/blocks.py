@@ -1,0 +1,167 @@
+"""Residual generator and discriminator blocks (the JAX package's
+``models/blocks.py``), NCHW.
+
+Sub-layers are named as flax names them (``Conv_0``, ``SpectralConv_1``,
+``ConditionalBatchNorm_0``, ...).  ``scale_fuse`` folds each generator
+upsample into the following 3x3 conv and each discriminator 2x2 pool into
+the preceding one (`ops.scale_fuse`); the parameters are the same either
+way.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from xmcgan_image_generation_tpu_torch.ops.normalization import (
+    ConditionalBatchNorm,
+    FusedSpatialModulation,
+)
+from xmcgan_image_generation_tpu_torch.ops.pooling import dsample, upsample
+from xmcgan_image_generation_tpu_torch.ops.spectral_norm import Conv
+
+
+def conv_prefix(spectral: bool) -> str:
+  """flax scope-name prefix of a conv layer."""
+  return "SpectralConv" if spectral else "Conv"
+
+
+class _Convs(nn.Module):
+  """A block whose convs are registered as ``<prefix>_<n>`` in order."""
+
+  def _add_convs(self, prefix: str, convs) -> list:
+    for n, conv in enumerate(convs):
+      self.add_module(f"{prefix}_{n}", conv)
+    return list(convs)
+
+
+class DiscBlock(_Convs):
+  """Pre-activation residual block with optional 2x downsample."""
+
+  def __init__(self, in_features: int, filters: int, downsample: bool, *,
+               spectral: bool, scale_fuse: bool, dtype, device=None,
+               generator: Optional[torch.Generator] = None):
+    super().__init__()
+    kw = dict(spectral=spectral, dtype=dtype, device=device,
+              generator=generator)
+    self.downsample = downsample
+    self.scale_fuse = scale_fuse
+    self.needs_projection = downsample or in_features != filters
+    pool = "pool" if scale_fuse and downsample else "none"
+    convs = [Conv(in_features, filters, (3, 3), **kw),
+             Conv(filters, filters, (3, 3), scale_op=pool, **kw)]
+    if self.needs_projection:
+      convs.append(Conv(in_features, filters, (1, 1), **kw))
+    self.convs = self._add_convs(conv_prefix(spectral), convs)
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    shortcut = x
+    x = self.convs[0](F.relu(x))
+    x = self.convs[1](F.relu(x))
+    if self.scale_fuse and self.downsample:
+      # The pool is folded into convs[1]; pool the shortcut before its 1x1
+      # projection (linear ops commute).
+      shortcut = dsample(shortcut)
+      if self.needs_projection:
+        shortcut = self.convs[2](shortcut)
+    else:
+      if self.needs_projection:
+        shortcut = self.convs[2](shortcut)
+      if self.downsample:
+        x = dsample(x)
+        shortcut = dsample(shortcut)
+    return x + shortcut
+
+
+class DiscOptimizedBlock(_Convs):
+  """First discriminator block (conv before activation, as in SNGAN)."""
+
+  def __init__(self, in_features: int, filters: int, *, spectral: bool,
+               scale_fuse: bool, dtype, device=None,
+               generator: Optional[torch.Generator] = None):
+    super().__init__()
+    kw = dict(spectral=spectral, dtype=dtype, device=device,
+              generator=generator)
+    self.scale_fuse = scale_fuse
+    convs = [Conv(in_features, filters, (3, 3), **kw),
+             Conv(filters, filters, (3, 3),
+                  scale_op="pool" if scale_fuse else "none", **kw),
+             Conv(in_features, filters, (1, 1), **kw)]
+    self.convs = self._add_convs(conv_prefix(spectral), convs)
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    shortcut = x
+    x = F.relu(self.convs[0](x))
+    x = self.convs[1](x)
+    if not self.scale_fuse:
+      x = dsample(x)
+    shortcut = self.convs[2](dsample(shortcut))
+    return x + shortcut
+
+
+class GenBlock(nn.Module):
+  """Upsampling generator block with global conditional BatchNorm."""
+
+  def __init__(self, in_features: int, filters: int, cond_features: int, *,
+               scale_fuse: bool, dtype, device=None,
+               generator: Optional[torch.Generator] = None):
+    super().__init__()
+    kw = dict(dtype=dtype, device=device, generator=generator)
+    self.scale_fuse = scale_fuse
+    self.ConditionalBatchNorm_0 = ConditionalBatchNorm(
+        in_features, cond_features, **kw)
+    self.Conv_0 = Conv(in_features, filters, (3, 3),
+                       scale_op="up" if scale_fuse else "none", **kw)
+    self.ConditionalBatchNorm_1 = ConditionalBatchNorm(
+        filters, cond_features, **kw)
+    self.Conv_1 = Conv(filters, filters, (3, 3), **kw)
+    self.Conv_2 = Conv(in_features, filters, (1, 1), **kw)
+
+  def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    shortcut = x
+    x = F.relu(self.ConditionalBatchNorm_0(x, cond))
+    x = self.Conv_0(x if self.scale_fuse else upsample(x))
+    x = F.relu(self.ConditionalBatchNorm_1(x, cond))
+    x = self.Conv_1(x)
+    if self.scale_fuse:
+      shortcut = upsample(self.Conv_2(shortcut))
+    else:
+      shortcut = self.Conv_2(upsample(shortcut))
+    return x + shortcut
+
+
+class GenSpatialBlockFused(nn.Module):
+  """Upsampling generator block modulated by the region-context map at its
+  own resolution (``factor`` = input resolution / context resolution)."""
+
+  def __init__(self, in_features: int, filters: int, ctx_features: int,
+               global_features: int, factor: int, *, scale_fuse: bool,
+               dtype, device=None,
+               generator: Optional[torch.Generator] = None):
+    super().__init__()
+    kw = dict(dtype=dtype, device=device, generator=generator)
+    self.scale_fuse = scale_fuse
+    self.FusedSpatialModulation_0 = FusedSpatialModulation(
+        in_features, ctx_features, global_features, factor, **kw)
+    self.Conv_0 = Conv(in_features, filters, (3, 3),
+                       scale_op="up" if scale_fuse else "none", **kw)
+    self.FusedSpatialModulation_1 = FusedSpatialModulation(
+        filters, ctx_features, global_features, 2 * factor, **kw)
+    self.Conv_1 = Conv(filters, filters, (3, 3), **kw)
+    self.Conv_2 = Conv(in_features, filters, (1, 1), **kw)
+
+  def forward(self, x: torch.Tensor, region_ctx: torch.Tensor,
+              global_cond: torch.Tensor) -> torch.Tensor:
+    shortcut = x
+    x = F.relu(self.FusedSpatialModulation_0(x, region_ctx, global_cond))
+    x = self.Conv_0(x if self.scale_fuse else upsample(x))
+    x = F.relu(self.FusedSpatialModulation_1(x, region_ctx, global_cond))
+    x = self.Conv_1(x)
+    if self.scale_fuse:
+      shortcut = upsample(self.Conv_2(shortcut))
+    else:
+      shortcut = self.Conv_2(upsample(shortcut))
+    return x + shortcut

@@ -1,0 +1,251 @@
+"""XMC-Net: text-conditional generator and projection discriminator with
+in-graph contrastive heads (the JAX package's ``models/xmc_net.py``).
+
+The public calls take and return NHWC images; the conv stacks run NCHW.
+Parameters are float32 and compute runs in the configured dtype.  The
+ported generator path is the default one: fused spatial modulation
+(``fused_spatial_cond``) without spectral norm in G.  BatchNorm statistics
+and contrastive pools are over the whole batch on one device.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from xmcgan_image_generation_tpu_torch.models import blocks
+from xmcgan_image_generation_tpu_torch.ops import attention as attn_ops
+from xmcgan_image_generation_tpu_torch.ops import contrastive as contrastive_ops
+from xmcgan_image_generation_tpu_torch.ops.normalization import (
+    FusedSpatialModulation,
+)
+from xmcgan_image_generation_tpu_torch.ops.spectral_norm import Conv, Dense
+
+Tensor = torch.Tensor
+BERT_DIM = 768
+
+_GEN_CHANNELS = {
+    32: [16, 8, 4],
+    64: [16, 8, 4, 2],
+    128: [16, 8, 4, 2, 1],
+    256: [16, 8, 8, 4, 2, 1],
+}
+_DISC_CHANNELS = {
+    32: [2, 4, 8],
+    64: [2, 4, 8, 16],
+    128: [2, 4, 8, 16, 16],
+    256: [2, 4, 8, 8, 16, 16],
+}
+_DISC_DOWNSAMPLE = {
+    32: [False, True, False],
+    64: [True, True, True, False],
+    128: [True, True, True, True, False],
+    256: [True, True, True, True, True, False],
+}
+
+STAT_NAMES = tuple(
+    [f"{side}_{head}_{metric}" for side in ("real", "fake")
+     for head in ("word", "sentence")
+     for metric in ("loss", "acc", "entropy")]
+    + [f"image_contrastive_{metric}"
+       for metric in ("loss", "acc", "entropy")])
+
+
+def compute_dtype(config) -> torch.dtype:
+  return torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
+
+
+def _check_supported(config) -> None:
+  """Raises on configuration branches the port does not have yet."""
+  if config.get("remat", False):
+    raise NotImplementedError("remat is not ported yet (ROADMAP queue 1)")
+  if int(config.get("batch_norm_group_size", -1)) > 0:
+    raise NotImplementedError("grouped BatchNorm is not ported yet")
+  if int(config.get("contrastive_group_size", -1)) > 0:
+    raise NotImplementedError("grouped contrastive pools are not ported yet")
+  if config.get("scale_fused_convs", False) and config.get(
+      "upconv_method", "phase") != "dilated":
+    raise NotImplementedError("only upconv_method='dilated' is ported")
+
+
+class Generator(nn.Module):
+  """Text-conditional generator.
+
+  ``forward(cond, z)``: ``cond`` holds ``sentence_embedding [B, 768]``,
+  ``embedding [B, L, 768]`` and ``max_len [B, 1]``; ``z`` is ``[B, z_dim]``.
+  Returns images in ``[0, 1]``, ``[B, S, S, 3]``.  Train mode uses batch
+  statistics (see `ops.normalization.frozen_batch_stats`).
+  """
+
+  def __init__(self, config, *, device=None,
+               generator: Optional[torch.Generator] = None):
+    super().__init__()
+    _check_supported(config)
+    if config.g_spectral_norm or not config.get("fused_spatial_cond", True):
+      raise NotImplementedError(
+          "only the fused-modulation generator (g_spectral_norm=False, "
+          "fused_spatial_cond=True) is ported")
+    self.config = config
+    self.dtype = compute_dtype(config)
+    kw = dict(dtype=self.dtype, device=device, generator=generator)
+    gf = config.gf_dim
+    z_dim = config.z_dim
+    channels = _GEN_CHANNELS[config.image_size]
+    fuse = bool(config.get("scale_fused_convs", False))
+    cond = 2 * z_dim  # projected sentence concat z
+
+    self.Dense_0 = Dense(BERT_DIM, z_dim, **kw)
+    self.Dense_1 = Dense(z_dim, gf * 16 * 4 * 4, **kw)
+    in_ch = gf * 16
+    for i in range(2):
+      self.add_module(f"GenBlock_{i}", blocks.GenBlock(
+          in_ch, gf * channels[i], cond, scale_fuse=fuse, **kw))
+      in_ch = gf * channels[i]
+    self.Conv_0 = Conv(in_ch, BERT_DIM, (1, 1), **kw)
+    factor = 1
+    self.spatial_blocks = []
+    for i in range(2, len(channels)):
+      block = blocks.GenSpatialBlockFused(
+          in_ch, gf * channels[i], BERT_DIM, cond, factor, scale_fuse=fuse,
+          **kw)
+      self.add_module(f"GenSpatialBlockFused_{i - 2}", block)
+      self.spatial_blocks.append(block)
+      in_ch = gf * channels[i]
+      factor *= 2
+    self.FusedSpatialModulation_0 = FusedSpatialModulation(
+        in_ch, BERT_DIM, cond, factor, **kw)
+    self.Conv_1 = Conv(in_ch, 3, (3, 3), **kw)
+
+  def forward(self, cond: Dict[str, Tensor], z: Tensor) -> Tensor:
+    config = self.config
+    sentence = cond["sentence_embedding"]
+    word_feat = cond["embedding"]
+    batch, total_len, embedding_dim = word_feat.shape
+    z = z.to(self.dtype)
+    global_cond = torch.cat([self.Dense_0(sentence.to(self.dtype)), z], -1)
+    x = self.Dense_1(z).reshape(batch, 4, 4, -1).permute(0, 3, 1, 2)
+    x = self.GenBlock_0(x, global_cond)
+    x = self.GenBlock_1(x, global_cond)
+
+    # Word-region attention at 16x16.
+    region = self.Conv_0(x)
+    side = region.shape[2]
+    region = region.permute(0, 2, 3, 1).reshape(batch, side * side,
+                                                 embedding_dim)
+    mask = attn_ops.padding_mask(cond["max_len"], total_len)
+    region_context, _ = attn_ops.attention_for_g(
+        region, word_feat, config.gamma_for_g, mask)
+    region_context = region_context.reshape(
+        batch, side, side, embedding_dim).permute(0, 3, 1, 2).to(self.dtype)
+
+    for block in self.spatial_blocks:
+      x = block(x, region_context, global_cond)
+    x = self.FusedSpatialModulation_0(x, region_context, global_cond)
+    x = torch.tanh(self.Conv_1(F.relu(x)))
+    return ((x + 1.0) / 2.0).permute(0, 2, 3, 1)
+
+
+class Discriminator(nn.Module):
+  """Projection discriminator with the five contrastive heads.
+
+  ``forward(images, cond)``: ``images`` is ``concat([real, fake])`` NHWC.
+  Returns ``(logit [2B, 1], stats)`` with the 15 statistics of
+  `STAT_NAMES`.  With ``critic_only`` the heads whose losses the critic
+  step does not use (fake word, fake sentence, image) are skipped and
+  their statistics are zero: the critic loss is the same number.
+  """
+
+  def __init__(self, config, *, device=None,
+               generator: Optional[torch.Generator] = None):
+    super().__init__()
+    _check_supported(config)
+    self.config = config
+    self.dtype = compute_dtype(config)
+    spectral = bool(config.d_spectral_norm)
+    kw = dict(dtype=self.dtype, device=device, generator=generator)
+    df = config.df_dim
+    fuse = bool(config.get("scale_fused_convs", False))
+    channels = _DISC_CHANNELS[config.image_size]
+    downsamples = _DISC_DOWNSAMPLE[config.image_size]
+
+    self.DiscOptimizedBlock_0 = blocks.DiscOptimizedBlock(
+        3, df, spectral=spectral, scale_fuse=fuse, **kw)
+    in_ch, resolution, cond_ch = df, config.image_size // 2, None
+    self.disc_blocks = []
+    for i, (ratio, down) in enumerate(zip(channels, downsamples)):
+      block = blocks.DiscBlock(in_ch, df * ratio, down, spectral=spectral,
+                               scale_fuse=fuse, **kw)
+      self.add_module(f"DiscBlock_{i}", block)
+      self.disc_blocks.append(block)
+      in_ch = df * ratio
+      resolution //= 2 if down else 1
+      if resolution == config.cond_size:
+        cond_ch = in_ch  # the last block output at cond_size x cond_size
+    # flax names: SpectralDense_0 (logit), SpectralDense_1 (sentence
+    # projection), SpectralConv_0 (word regions); without spectral norm,
+    # Dense_* and Conv_0.
+    dense = "SpectralDense" if spectral else "Dense"
+    self._names = (f"{dense}_0", f"{dense}_1",
+                   f"{blocks.conv_prefix(spectral)}_0")
+    self.add_module(self._names[0],
+                    Dense(in_ch, 1, spectral=spectral, **kw))
+    self.add_module(self._names[1],
+                    Dense(BERT_DIM, in_ch, spectral=spectral, **kw))
+    if config.word_contrastive:
+      self.add_module(self._names[2], Conv(cond_ch, BERT_DIM, (1, 1),
+                                           spectral=spectral, **kw))
+
+  def forward(self, images: Tensor, cond: Dict[str, Tensor],
+              critic_only: bool = False) -> Tuple[Tensor, Dict[str, Tensor]]:
+    config = self.config
+    use_pallas = bool(config.get("use_pallas", False))
+    x = images.permute(0, 3, 1, 2).to(self.dtype)
+    x = self.DiscOptimizedBlock_0(x)
+    x_cond = None
+    for block in self.disc_blocks:
+      x = block(x)
+      if x.shape[2] == config.cond_size:
+        x_cond = x
+    x_pool = F.relu(x).sum(dim=(2, 3))
+
+    dense_logit, dense_sentence, region_conv = (
+        getattr(self, name, None) for name in self._names)
+    out = dense_logit(x_pool)
+    sent_cond = dense_sentence(
+        cond["sentence_embedding"].to(self.dtype))
+    tile_num = x_pool.shape[0] // sent_cond.shape[0]
+    out = out + (x_pool * sent_cond.repeat(tile_num, 1)).sum(
+        dim=1, keepdim=True)
+
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    stats = {name: zero for name in STAT_NAMES}
+    real_pool, fake_pool = x_pool.chunk(2)
+
+    def put(prefix, values):
+      for metric, v in zip(("loss", "acc", "entropy"), values):
+        stats[f"{prefix}_{metric}"] = v
+
+    if config.sentence_contrastive:
+      if not critic_only:
+        put("fake_sentence", contrastive_ops.nt_xent(
+            fake_pool, sent_cond, use_pallas=use_pallas))
+      put("real_sentence", contrastive_ops.nt_xent(
+          real_pool, sent_cond, use_pallas=use_pallas))
+    if config.word_contrastive:
+      region = region_conv(x_cond)
+      region = region.permute(0, 2, 3, 1).reshape(
+          region.shape[0], -1, region.shape[1])
+      real_region, fake_region = region.chunk(2)
+      word_feat, max_len = cond["embedding"], cond["max_len"]
+      if not critic_only:
+        put("fake_word", attn_ops.word_loss(
+            fake_region, word_feat, max_len, use_pallas=use_pallas))
+      put("real_word", attn_ops.word_loss(
+          real_region, word_feat, max_len, use_pallas=use_pallas))
+    if config.image_contrastive and not critic_only:
+      put("image_contrastive", contrastive_ops.nt_xent(
+          fake_pool, real_pool, use_pallas=use_pallas))
+    return out, stats
