@@ -1,9 +1,9 @@
 """The port's kernels (ops/cuda) against the JAX package's Pallas kernels.
 
 CPU tests: the plain PyTorch version of each kernel (NT-Xent, word-score
-forward, word-score region gradient) against the Pallas kernel run in
-interpret mode, at a small size with a ragged mask, for float32 and for
-bfloat16 inputs.  Inputs come from a numpy seed.
+forward, word-score region and word gradients) against the Pallas kernel
+run in interpret mode, at a small size with a ragged mask, for float32
+and for bfloat16 inputs.  Inputs come from a numpy seed.
 
 GPU tests (marker ``gpu``): each CUDA kernel against its plain version at
 the flagship shapes.  They need a card and skip without one; on the card
@@ -169,6 +169,46 @@ def test_drn_plain_matches_pallas_backward(reference):
                                 got.numpy())
 
 
+def test_dwn_plain_matches_pallas_backward(reference):
+  """The plain version of kernel D against ``_scores_bwd_pallas``'s d_wn
+  (unit features in, before the l2-norm VJP)."""
+  region, word, mask, g = _features(seed=7)
+  rn = np.array(ws_pl.l2_normalize(jnp.asarray(region), axis=-1))
+  wn = np.array(ws_pl.l2_normalize(jnp.asarray(word), axis=-1))
+  _, want = ws_pl._scores_bwd_pallas(
+      jnp.asarray(rn), jnp.asarray(wn), jnp.asarray(mask), jnp.asarray(g),
+      GAMMA, GAMMA, interpret=True)
+  want = np.asarray(want)
+  args = [torch.from_numpy(x) for x in (rn, wn, mask, g)]
+  got = ws.dwn_plain(*args, GAMMA, GAMMA)
+  tol = GRAD_RTOL["float32"]
+  np.testing.assert_allclose(got.numpy(), want, rtol=tol,
+                             atol=tol * np.abs(want).max())
+  np.testing.assert_array_equal(ws.dwn(*args, None, GAMMA, GAMMA).numpy(),
+                                got.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_word_scores_both_gradients_match_pallas(reference, dtype):
+  """The public op differentiated with respect to regions and words at
+  once, as ``tests/test_pallas.py`` differentiates the JAX op."""
+  region, word, mask, g = _features(seed=8)
+  jr, tr = _to_both(region, dtype)
+  jw, tw = _to_both(word, dtype)
+  jm, jg = jnp.asarray(mask), jnp.asarray(g)
+  want = jax.grad(lambda r, w: jnp.sum(
+      jg * ws_pl.word_scores(r, w, jm, GAMMA, GAMMA, True)),
+                  argnums=(0, 1))(jr, jw)
+  tr.requires_grad_()
+  tw.requires_grad_()
+  ws.word_scores(tr, tw, torch.from_numpy(mask), GAMMA, GAMMA).backward(
+      torch.from_numpy(g))
+  for got, w in zip((tr.grad, tw.grad), want):
+    w = np.asarray(w, np.float32)
+    np.testing.assert_allclose(got.float().numpy(), w, rtol=GRAD_RTOL[dtype],
+                               atol=GRAD_RTOL[dtype] * np.abs(w).max())
+
+
 def test_word_loss_pallas_path_matches_jax(reference):
   """`attention.word_loss(use_pallas=True)` (plain kernels on the CPU)
   against the JAX Pallas path."""
@@ -240,9 +280,37 @@ def test_gpu_word_scores_region_gradient(cuda, dtype):
 
 
 @pytest.mark.gpu
-def test_gpu_word_gradient_is_not_ported(cuda):
+def test_gpu_word_gradient_kernel(cuda):
+  """Kernel D against its plain version, from the record kernel B saved."""
   region, word, mask, g = _flagship(cuda, seed=3)
-  word.requires_grad_()
-  s = ws.word_scores(region, word, mask, GAMMA, GAMMA)
-  with pytest.raises(NotImplementedError, match="_bwd_dwn_kernel"):
-    s.backward(g)
+  rn = l2_normalize(region).contiguous()
+  wn = l2_normalize(word).contiguous()
+  saved = ws.new_saved(rn, wn)
+  ws.scores(rn, wn, mask, GAMMA, GAMMA, saved)
+  before = ws.dwn.launches
+  got = ws.dwn(rn, wn, mask, g, saved, GAMMA, GAMMA)
+  assert ws.dwn.launches == before + 1
+  want = ws.dwn_plain(rn, wn, mask, g, GAMMA, GAMMA)
+  # f32 on both sides, TF32 off: summation order only.
+  assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_word_scores_both_gradients(cuda, dtype):
+  """The public op with both inputs asking for a gradient: kernels B, C
+  and D against plain autograd."""
+  region, word, mask, g = _flagship(cuda, seed=4)
+  region, word = region.to(dtype), word.to(dtype)
+  x1 = region.clone().requires_grad_()
+  y1 = word.clone().requires_grad_()
+  ws.word_scores(x1, y1, mask, GAMMA, GAMMA).backward(g)
+  x2 = region.clone().requires_grad_()
+  y2 = word.clone().requires_grad_()
+  ws.scores_plain(l2_normalize(x2.float()), l2_normalize(y2.float()), mask,
+                  GAMMA, GAMMA).t().backward(g)
+  rtol = 1e-4 if dtype == torch.float32 else 8e-3
+  for got, ref in ((x1.grad, x2.grad), (y1.grad, y2.grad)):
+    ref = ref.float()
+    assert float((got.float() - ref).abs().max()) <= rtol * float(
+        ref.abs().max())

@@ -1,8 +1,9 @@
 """The port runs where JAX is not installed, as on the machine with the
-card: in a fresh interpreter where importing ``jax``, ``flax``, ``optax``
-or ``ml_collections`` fails, import the port and take one tiny CPU step
-through ``train.train``.  And ``chip_smoke.py`` refuses to run without a
-card."""
+card, and imports nothing of the JAX package: in a fresh interpreter
+where importing ``jax``, ``flax``, ``optax``, ``ml_collections`` or
+``xmcgan_image_generation_tpu`` fails, import every module of the port and
+``chip_smoke.py``, and take one tiny CPU step through ``train.train``.
+And ``chip_smoke.py`` refuses to run without a card."""
 
 import json
 import os
@@ -13,12 +14,23 @@ import textwrap
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
+_BLOCKED = ("jax", "flax", "optax", "ml_collections",
+            "xmcgan_image_generation_tpu")
+
 _SCRIPT = textwrap.dedent("""
-    import json, os, sys
-    for name in ("jax", "flax", "optax", "ml_collections"):
+    import importlib, importlib.util, json, os, pkgutil, sys
+    BLOCKED = %r
+    for name in BLOCKED:
       sys.modules[name] = None   # any import of them raises ImportError
     import torch
     torch.set_num_threads(1)
+    import xmcgan_image_generation_tpu_torch as port
+    modules = [m.name for m in pkgutil.walk_packages(port.__path__,
+                                                     port.__name__ + ".")]
+    for name in modules:
+      importlib.import_module(name)
+    spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[2])
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
     from xmcgan_image_generation_tpu_torch import train
     from xmcgan_image_generation_tpu_torch.configs import coco_xmc
     config = coco_xmc.get_test_config()
@@ -27,11 +39,11 @@ _SCRIPT = textwrap.dedent("""
     config.use_pallas = True
     state = train.train(config, sys.argv[1], "cpu")
     loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "flax", "optax",
-                                           "ml_collections", "jaxlib")
+                    if m.split(".")[0] in BLOCKED + ("jaxlib",)
                     and sys.modules[m] is not None)
-    print(json.dumps({"step": state.step, "loaded": loaded}))
-""")
+    print(json.dumps({"step": state.step, "loaded": loaded,
+                      "modules": modules}))
+""" % (_BLOCKED,))
 
 
 def _env():
@@ -43,11 +55,17 @@ def _env():
 
 def test_port_trains_without_jax(tmp_path):
   proc = subprocess.run(
-      [sys.executable, "-c", _SCRIPT, str(tmp_path)], capture_output=True,
+      [sys.executable, "-c", _SCRIPT, str(tmp_path),
+       str(ROOT / "chip_smoke.py")], capture_output=True,
       text=True, timeout=600, env=_env(), cwd=tmp_path, check=False)
   assert proc.returncode == 0, proc.stderr[-3000:]
   result = json.loads(proc.stdout.strip().splitlines()[-1])
-  assert result == {"step": 1, "loaded": []}
+  assert result["step"] == 1 and result["loaded"] == []
+  # Every module of the port was imported, the new path's among them.
+  for name in ("evaluate", "generate", "main", "models.inception_v3",
+               "utils.checkpoint", "utils.eval_metrics", "utils.fid",
+               "utils.task_manager", "ops.cuda.word_scores"):
+    assert f"xmcgan_image_generation_tpu_torch.{name}" in result["modules"]
   lines = (tmp_path / "metrics.jsonl").read_text().splitlines()
   record = json.loads(lines[-1])
   assert record["step"] == 1

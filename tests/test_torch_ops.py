@@ -88,8 +88,12 @@ class TestPooling:
           j_pooling.dsample(x))
 
   def test_padded_avg_pool_is_not_ported(self):
-    with pytest.raises(NotImplementedError):
-      pooling.tf_avg_pool(torch.zeros(1, 1, 5, 5), (2, 2), (2, 2), "SAME")
+    """The padded SAME case, which once raised, is the JAX two-pass form
+    (padding cells left out of the mean)."""
+    x = rand((1, 5, 5, 1), 9)
+    close(nhwc(pooling.tf_avg_pool(bridge.nhwc_to_nchw(t(x)), (2, 2), (2, 2),
+                                   "SAME")),
+          j_pooling.tf_avg_pool(x, (2, 2), (2, 2), "SAME"))
 
 
 class TestScaleFuse:

@@ -5,11 +5,11 @@ the repository as the reference.  Module paths mirror the JAX package's
 (``ops/attention.py`` <-> ``ops/attention.py`` and so on), parameter names
 follow its flax scope names (``GenBlock_0``, ``Conv_0``, ...) so that
 `utils.bridge` maps weights mechanically, and public functions keep its
-NHWC layout.  The two Pallas kernels of the training step are CUDA C++
-kernels for ``sm_90a`` (``csrc/``), bound with ``ctypes`` by
-``ops/cuda/``.
+NHWC layout.  Every Pallas kernel of the JAX package is a CUDA C++ kernel
+for ``sm_90a`` (``csrc/``), bound with ``ctypes`` by ``ops/cuda/``.
 
-This package imports ``torch`` and never ``jax``.
+This package imports ``torch`` and never ``jax``, nor any module of the
+JAX package: it keeps its own copies of the host-side code it needs.
 """
 
 __version__ = "0.1.0"

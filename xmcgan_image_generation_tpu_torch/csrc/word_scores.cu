@@ -1,10 +1,9 @@
-// AttnGAN word-region score matrix and its region gradient on Hopper.
+// AttnGAN word-region score matrix and its two gradients on Hopper.
 //
 // Replaces: xmcgan_image_generation_tpu/ops/pallas/word_scores.py,
-//   _scores_kernel (forward, pallas_call in _scores_pallas) and
-//   _bwd_drn_kernel (d_rn, first pallas_call in _scores_bwd_pallas).
-//   _bwd_dwn_kernel (d_wn) is not ported: the training step never
-//   differentiates the word features.
+//   _scores_kernel (forward, pallas_call in _scores_pallas),
+//   _bwd_drn_kernel (d_rn, first pallas_call in _scores_bwd_pallas) and
+//   _bwd_dwn_kernel (d_wn, second pallas_call there).
 // Computes, for image i with unit regions rn_i [R, D] and caption c with
 //   unit words wn_c [L, D] and padding mask m_c [L]:
 //     S     = rn_i wn_c^T                       [R, L]
@@ -13,10 +12,12 @@
 //     rowsim[w] = (ctx_w . wn_w) / |ctx_w|
 //     s[i, c] = logsumexp over w of (g2 rowsim + m NEG_INF) / g2
 //   and, for a cotangent g[c, i] of s, d_rn_i = sum over c of
-//     alpha d_ctx + d_sim wn_c   (the chain of _bwd_cell_chain).
+//     alpha d_ctx + d_sim wn_c   (the chain of _bwd_cell_chain), and
+//   d_wn_c = sum over i of (d_rowsim inv) ctx + d_sim^T rn_i.
 // Bound: at the flagship (56 images x 56 captions, R = 256, L = 17,
-//   D = 768) the inputs are 44 MB (rn) and 3 MB (wn) and the work is tens
-//   of GFMA, so arithmetic bounds both kernels: f32 FMA on the CUDA cores
+//   D = 768) the inputs are 44 MB (rn) and 3 MB (wn), the gradients also
+//   read the forward's 174 MB record, and the work is 10-17 GFMA per
+//   kernel, so arithmetic bounds all three: f32 FMA on the CUDA cores
 //   in this version.  A block's products are small matrix products whose
 //   operands sit in shared memory, and shared-memory bandwidth (one
 //   128-byte wavefront per clock per SM against four warp FMAs) bounds
@@ -49,6 +50,14 @@
 //   over caption groups p, p + P, ... of image i and owns partial[p, i]
 //   and its own H, and a second launch sums the P partials in a fixed
 //   order: deterministic, no atomics.
+// The word gradient starts from the same record and the same E:
+//   d_wn_c = sum_i (ca alpha + d_sim)^T rn_i = sum_i E_i^T rn_i, one D-long
+//   product per (image, caption group) and no D-long pass for d_alpha.
+//   The TPU summed d_wn over images in an output block revisited on
+//   consecutive grid steps; here block (group, p) loops over images p,
+//   p + P, ..., rebuilds E from the record, adds E_i^T rn_i into its own
+//   partial[p] (read and written back per image, from L2), and the same
+//   second launch sums the P partials in a fixed order.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,6 +74,7 @@ constexpr int kRS = kMaxRegions + 1;   // odd row stride of [word|k][region]
 constexpr int kChunk = 32;             // feature chunk of a D-long pass
 constexpr int kWLd = kMaxWords + 1;    // odd row stride of [k][word]
 constexpr int kDChunk = 64;            // feature chunk of the d_rn products
+constexpr int kWChunk = 256;           // feature chunk of the d_wn product
 // What the forward saves per (image, caption group) for the region
 // gradient: alpha, S and G alpha as [kMaxWords][kMaxRegions], then ctx.wn
 // and |ctx|^2 per word.
@@ -112,6 +122,8 @@ static_assert((kMaxWords * kRS) % 4 == 0 && (kChunk * kRS) % 4 == 0 &&
               (kChunk * kWLd) % 4 == 0, "16-byte aligned arrays");
 static_assert(kMaxWords * kDChunk <= kChunk * kRS &&
               32 * kDChunk <= kChunk * kWLd, "d_rn chunks fit the tiles");
+static_assert(32 * kWChunk <= kChunk * kRS && kWChunk == 8 * 32,
+              "d_wn tiles are 32 regions x 256 features, 8 per lane");
 static_assert(kBwdSmemFloats * sizeof(float) <= 232448,
               "shared memory of scores_drn exceeds what a block can use");
 
@@ -405,6 +417,84 @@ scores_fwd(const float* __restrict__ rn, const float* __restrict__ wn,
         caption_lse(s, t * sh.words, sh.words, gamma2) / gamma2;
 }
 
+// The cotangent chain of one (image i, caption group at c0) from what
+// the forward saved in `record` (the chain of _bwd_cell_chain): alpha
+// into s.alpha, the mask, d_ctx = ca wn - cb ctx as s.ca and s.cb, and
+// E = alpha ca + d_sim [word][region] in s.sim, where d_sim is the softmax
+// VJP of d_alpha = rn d_ctx^T = ca S - cb G alpha.  Both gradients start
+// from E: d_rn = E wn - alpha diag(cb) alpha^T rn and d_wn = E^T rn.
+// Starts with a barrier; on return each thread has written only its own
+// tile of E, so a reader of other lanes' E synchronizes first.
+__device__ void cotangent_chain(const Smem& s, const float* record,
+                                const float* mask, const float* g,
+                                const Shape& sh, int i, int c0,
+                                int num_words, float gamma1, float gamma2) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  // The forward's alpha (registers and s.alpha), S (s.sim), G alpha
+  // (registers), ctx.wn and |ctx|^2 of this group.
+  __syncthreads();
+  Tile alpha, tp;  // tp: G alpha, then t = alpha d_alpha
+  load_mask(s, mask, sh, c0, num_words);
+  load_tile(alpha, record);
+  load_tile(tp, record + 2 * kPlane);
+#pragma unroll
+  for (int m = 0; m < kWordsPerWarp; ++m)
+#pragma unroll
+    for (int i2 = 0; i2 < kRegionsPerLane; ++i2) {
+      const int w = warp * kWordsPerWarp + m, r = lane + 32 * i2;
+      s.alpha[w * kRS + r] = alpha[i2][m];
+      s.sim[w * kRS + r] = record[kPlane + w * kMaxRegions + r];
+    }
+  for (int w = t; w < kMaxWords; w += kThreads) {
+    s.num[w] = record[3 * kPlane + w];
+    s.csq[w] = record[3 * kPlane + kMaxWords + w];
+  }
+  __syncthreads();
+
+  // logsumexp VJP, then the cosine VJP: d_ctx = ca wn - cb ctx.
+  if (t < kMaxWords) {
+    float ca = 0.f, cb = 0.f;
+    if (t < num_words) {
+      const int cap = t / sh.words;
+      const float lse = caption_lse(s, cap * sh.words, sh.words, gamma2);
+      const float beta = expf(row_logit(s, t, gamma2) - lse);
+      const float d_rowsim =
+          g[(size_t)(c0 + cap) * sh.num_images + i] * beta;
+      const float inv = rsqrtf(fmaxf(s.csq[t], 1e-12f));
+      const float rowsim = s.num[t] * inv;
+      const float guard = s.csq[t] >= 1e-12f ? 1.f : 0.f;
+      ca = d_rowsim * inv;
+      cb = guard * d_rowsim * rowsim * inv * inv;
+    }
+    s.ca[t] = ca;
+    s.cb[t] = cb;
+  }
+  __syncthreads();
+
+  // d_alpha = ca S - cb G alpha; softmax VJP over regions,
+  // d_sim = g1 (t - alpha sum_r t) with t = alpha d_alpha; and
+  // E = alpha ca + d_sim over S in s.sim (this thread's tile only).
+#pragma unroll
+  for (int m = 0; m < kWordsPerWarp; ++m) {
+    const int w = warp * kWordsPerWarp + m;
+    const float ca = s.ca[w], cb = s.cb[w];
+    float* row = s.sim + w * kRS + lane;
+    float colsum = 0.f;
+#pragma unroll
+    for (int i2 = 0; i2 < kRegionsPerLane; ++i2) {
+      const float d_alpha = ca * row[32 * i2] - cb * tp[i2][m];
+      tp[i2][m] = alpha[i2][m] * d_alpha;
+      colsum += tp[i2][m];
+    }
+    colsum = warp_sum(colsum);
+#pragma unroll
+    for (int i2 = 0; i2 < kRegionsPerLane; ++i2)
+      row[32 * i2] = alpha[i2][m] * ca +
+                     gamma1 * (tp[i2][m] - alpha[i2][m] * colsum);
+  }
+
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
 scores_drn(const float* __restrict__ rn, const float* __restrict__ wn,
            const float* __restrict__ mask, const float* __restrict__ g,
@@ -429,69 +519,8 @@ scores_drn(const float* __restrict__ rn, const float* __restrict__ wn,
     const int num_words = ncap * sh.words;
     const float* wn_g = wn + (size_t)c0 * sh.words * sh.dim;
 
-    // The forward's alpha (registers and s.alpha), S (s.sim), G alpha
-    // (registers), ctx.wn and |ctx|^2 of this group.
-    const float* record = saved + ((size_t)i * num_groups + grp) * kRecord;
-    __syncthreads();
-    Tile alpha, tp;  // tp: G alpha, then t = alpha d_alpha
-    load_mask(s, mask, sh, c0, num_words);
-    load_tile(alpha, record);
-    load_tile(tp, record + 2 * kPlane);
-#pragma unroll
-    for (int m = 0; m < kWordsPerWarp; ++m)
-#pragma unroll
-      for (int i2 = 0; i2 < kRegionsPerLane; ++i2) {
-        const int w = warp * kWordsPerWarp + m, r = lane + 32 * i2;
-        s.alpha[w * kRS + r] = alpha[i2][m];
-        s.sim[w * kRS + r] = record[kPlane + w * kMaxRegions + r];
-      }
-    for (int w = t; w < kMaxWords; w += kThreads) {
-      s.num[w] = record[3 * kPlane + w];
-      s.csq[w] = record[3 * kPlane + kMaxWords + w];
-    }
-    __syncthreads();
-
-    // logsumexp VJP, then the cosine VJP: d_ctx = ca wn - cb ctx.
-    if (t < kMaxWords) {
-      float ca = 0.f, cb = 0.f;
-      if (t < num_words) {
-        const int cap = t / sh.words;
-        const float lse = caption_lse(s, cap * sh.words, sh.words, gamma2);
-        const float beta = expf(row_logit(s, t, gamma2) - lse);
-        const float d_rowsim =
-            g[(size_t)(c0 + cap) * sh.num_images + i] * beta;
-        const float inv = rsqrtf(fmaxf(s.csq[t], 1e-12f));
-        const float rowsim = s.num[t] * inv;
-        const float guard = s.csq[t] >= 1e-12f ? 1.f : 0.f;
-        ca = d_rowsim * inv;
-        cb = guard * d_rowsim * rowsim * inv * inv;
-      }
-      s.ca[t] = ca;
-      s.cb[t] = cb;
-    }
-    __syncthreads();
-
-    // d_alpha = ca S - cb G alpha; softmax VJP over regions,
-    // d_sim = g1 (t - alpha sum_r t) with t = alpha d_alpha; and
-    // E = alpha ca + d_sim over S in s.sim (this thread's tile only).
-#pragma unroll
-    for (int m = 0; m < kWordsPerWarp; ++m) {
-      const int w = warp * kWordsPerWarp + m;
-      const float ca = s.ca[w], cb = s.cb[w];
-      float* row = s.sim + w * kRS + lane;
-      float colsum = 0.f;
-#pragma unroll
-      for (int i2 = 0; i2 < kRegionsPerLane; ++i2) {
-        const float d_alpha = ca * row[32 * i2] - cb * tp[i2][m];
-        tp[i2][m] = alpha[i2][m] * d_alpha;
-        colsum += tp[i2][m];
-      }
-      colsum = warp_sum(colsum);
-#pragma unroll
-      for (int i2 = 0; i2 < kRegionsPerLane; ++i2)
-        row[32 * i2] = alpha[i2][m] * ca +
-                       gamma1 * (tp[i2][m] - alpha[i2][m] * colsum);
-    }
+    cotangent_chain(s, saved + ((size_t)i * num_groups + grp) * kRecord,
+                    mask, g, sh, i, c0, num_words, gamma1, gamma2);
 
     // H += alpha diag(cb) alpha^T over this group's words, in the block's
     // [kMaxRegions, kMaxRegions] scratch: 4 passes of 8 x 8 tiles.
@@ -591,6 +620,89 @@ scores_drn(const float* __restrict__ rn, const float* __restrict__ wn,
   }
 }
 
+// d_wn of caption group blockIdx.x, summed over images p, p + P, ... for
+// p = blockIdx.y into partial[p] ([num_caps * words, dim] each): per image
+// it rebuilds E from the forward's record (`cotangent_chain`) and adds
+// E^T rn_i, walking D in chunks of kWChunk features and the regions in
+// tiles of 32.  Warp j holds words 9j..9j+8 and lane l features 4l..4l+3
+// and 128 + 4l..128 + 4l + 3 of a chunk, so that 17 shared-memory loads
+// (9 broadcasts of E, two float4 of rn) feed 72 FMAs.
+__global__ void __launch_bounds__(kThreads, 1)
+scores_dwn(const float* __restrict__ rn, const float* __restrict__ mask,
+           const float* __restrict__ g, const float* __restrict__ saved,
+           float* __restrict__ partial, Shape sh, int group, int parts,
+           float gamma1, float gamma2) {
+  extern __shared__ float4 smem4[];
+  const Smem s = carve(reinterpret_cast<float*>(smem4));
+  const int grp = blockIdx.x, p_idx = blockIdx.y;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int num_groups = gridDim.x;
+  const int c0 = grp * group;
+  const int num_words = min(group, sh.num_caps - c0) * sh.words;
+  float* out_g = partial + ((size_t)p_idx * sh.num_caps + c0) * sh.words *
+                               sh.dim;
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int i = p_idx; i < sh.num_images; i += parts) {
+    const bool first = i == p_idx;
+    cotangent_chain(s, saved + ((size_t)i * num_groups + grp) * kRecord,
+                    mask, g, sh, i, c0, num_words, gamma1, gamma2);
+    const float* rn_i = rn + (size_t)i * sh.regions * sh.dim;
+    for (int d0 = 0; d0 < sh.dim; d0 += kWChunk) {
+      const int da = d0 + 4 * lane, db = da + kWChunk / 2;
+      float acc[kWordsPerWarp][8];
+#pragma unroll
+      for (int m = 0; m < kWordsPerWarp; ++m) {
+        const int w = warp * kWordsPerWarp + m;
+        const float* row = out_g + (size_t)w * sh.dim;
+        const bool ok = !first && w < num_words;
+        const float4 a = ok && da + 4 <= sh.dim ? ld4(row + da) : z;
+        const float4 b = ok && db + 4 <= sh.dim ? ld4(row + db) : z;
+        acc[m][0] = a.x; acc[m][1] = a.y; acc[m][2] = a.z; acc[m][3] = a.w;
+        acc[m][4] = b.x; acc[m][5] = b.y; acc[m][6] = b.z; acc[m][7] = b.w;
+      }
+      for (int r0 = 0; r0 < sh.regions; r0 += 32) {
+        __syncthreads();
+        // rn_i[r0 .. r0 + 32, d0 .. d0 + kWChunk] as [32][kWChunk].
+        for (int idx = t; idx < 32 * (kWChunk / 4); idx += kThreads) {
+          const int rr = idx / (kWChunk / 4), c = 4 * (idx % (kWChunk / 4));
+          st4(s.tile + rr * kWChunk + c,
+              (r0 + rr < sh.regions && d0 + c + 4 <= sh.dim)
+                  ? ld4(rn_i + (size_t)(r0 + rr) * sh.dim + d0 + c) : z);
+        }
+        __syncthreads();
+        const float* er = s.sim + warp * kWordsPerWarp * kRS + r0;
+#pragma unroll 4
+        for (int rr = 0; rr < 32; ++rr) {
+          float e[kWordsPerWarp];
+#pragma unroll
+          for (int m = 0; m < kWordsPerWarp; ++m) e[m] = er[m * kRS + rr];
+          const float4 x0 = ld4(s.tile + rr * kWChunk + 4 * lane);
+          const float4 x1 = ld4(s.tile + rr * kWChunk + kWChunk / 2 +
+                                4 * lane);
+          const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+          for (int m = 0; m < kWordsPerWarp; ++m)
+#pragma unroll
+            for (int n = 0; n < 8; ++n) acc[m][n] += e[m] * x[n];
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < kWordsPerWarp; ++m) {
+        const int w = warp * kWordsPerWarp + m;
+        if (w >= num_words) continue;
+        float* row = out_g + (size_t)w * sh.dim;
+        if (da + 4 <= sh.dim)
+          st4(row + da, make_float4(acc[m][0], acc[m][1], acc[m][2],
+                                    acc[m][3]));
+        if (db + 4 <= sh.dim)
+          st4(row + db, make_float4(acc[m][4], acc[m][5], acc[m][6],
+                                    acc[m][7]));
+      }
+    }
+  }
+}
+
 // out[n] = sum over p of partial[p, n], in the order p = 0, 1, ...
 __global__ void sum_parts(const float* __restrict__ partial,
                           float* __restrict__ out, size_t n, int parts) {
@@ -684,6 +796,40 @@ int xmc_word_scores_drn(const void* rn, const void* wn, const void* mask,
   const size_t n = (size_t)num_images * regions * dim;
   sum_parts<<<1024, 256, 0, st>>>(static_cast<const float*>(partial),
                                   static_cast<float*>(d_rn), n, parts);
+  return cudaGetLastError();
+}
+
+// Same inputs as xmc_word_scores_drn but for the word gradient: partial:
+// [parts, num_caps, words, dim] scratch (may be d_wn itself when parts ==
+// 1); d_wn: [num_caps, words, dim].  Blocks own (caption group, part of
+// the images); a second launch sums the parts in a fixed order.
+int xmc_word_scores_dwn(const void* rn, const void* mask, const void* g,
+                        const void* saved, void* partial, void* d_wn,
+                        int num_images, int num_caps, int regions, int words,
+                        int dim, int parts, float gamma1, float gamma2,
+                        void* stream) {
+  const Shape sh{num_images, num_caps, regions, words, dim};
+  int e = check_shape(sh);
+  if (e != cudaSuccess) return e;
+  if (parts < 1 || parts > num_images) return cudaErrorInvalidValue;
+  if (parts == 1 && partial != d_wn) return cudaErrorInvalidValue;
+  const int group = kMaxWords / words;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = (size_t)kBwdSmemFloats * sizeof(float);
+  e = cudaFuncSetAttribute(scores_dwn,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((num_caps + group - 1) / group, parts);
+  scores_dwn<<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(rn), static_cast<const float*>(mask),
+      static_cast<const float*>(g), static_cast<const float*>(saved),
+      static_cast<float*>(partial), sh, group, parts, gamma1, gamma2);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || parts == 1) return e;
+  const size_t n = (size_t)num_caps * words * dim;
+  sum_parts<<<1024, 256, 0, st>>>(static_cast<const float*>(partial),
+                                  static_cast<float*>(d_wn), n, parts);
   return cudaGetLastError();
 }
 

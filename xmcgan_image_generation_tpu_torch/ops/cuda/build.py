@@ -1,11 +1,14 @@
-"""Builds the CUDA kernels of ``csrc/`` into one shared library.
+"""Builds the CUDA kernels of ``csrc/``, one shared library per source.
 
-``nvcc`` compiles every ``.cu`` file of ``csrc/`` for ``sm_90a`` into a
-library with a plain C interface, which `library` loads with ``ctypes``.
-The sources include no PyTorch header, so a build takes seconds.  The
-library lands in ``_build/`` beside the package, named by a hash of the
-sources, so an edited kernel is rebuilt and an unchanged one is not.
-Nothing is built when this module is imported.
+``nvcc`` compiles each ``.cu`` file of ``csrc/`` for ``sm_90a`` into a
+library with a plain C interface; the compilers of all sources start
+together and run in parallel.  `library` loads the libraries with
+``ctypes`` and looks each entry point up in them.  The sources include no
+PyTorch header, so a build takes seconds.  The libraries land in
+``_build/`` beside the package, each named by a hash of its source (with
+the headers of ``csrc/`` and the flags), so an edited kernel is rebuilt
+and an unchanged one is not.  Nothing is built when this module is
+imported.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from typing import Dict, List
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -42,6 +46,8 @@ SIGNATURES = {
                             _F, _P),
     "xmc_word_scores_drn": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _F, _F, _P),
+    "xmc_word_scores_dwn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _F, _F, _P),
     "xmc_word_scores_group_size": (_I,),
     "xmc_word_scores_record_floats": (),
 }
@@ -49,18 +55,18 @@ SIGNATURES = {
 
 @dataclasses.dataclass
 class BuildResult:
-  path: pathlib.Path
-  seconds: float     # 0.0 when the library was already built
+  paths: List[pathlib.Path]  # one library per source
+  seconds: float     # wall time of the parallel build; 0.0 when all existed
   log: str           # nvcc's output, with -Xptxas -v's per-kernel lines
 
 
-def _sources():
-  return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+def _sources() -> List[pathlib.Path]:
+  return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def source_hash() -> str:
+def source_hash(source: pathlib.Path) -> str:
   h = hashlib.sha256()
-  for path in _sources():
+  for path in [source] + sorted(CSRC_DIR.glob("*.cuh")):
     h.update(path.name.encode())
     h.update(path.read_bytes())
   h.update(" ".join(NVCC_FLAGS).encode())
@@ -83,36 +89,71 @@ def find_nvcc() -> str:
 
 
 def build() -> BuildResult:
-  """Compiles ``csrc/*.cu`` unless the library of these sources exists."""
-  path = BUILD_DIR / f"libxmcgan_kernels_{source_hash()}.so"
-  if path.exists():
-    return BuildResult(path, 0.0, "")
+  """Compiles every ``csrc/*.cu`` whose library does not exist yet, one
+  ``nvcc`` per source, all at once."""
+  targets = {src: BUILD_DIR / f"lib{src.stem}_{source_hash(src)}.so"
+             for src in _sources()}
+  todo = [src for src, path in targets.items() if not path.exists()]
+  if not todo:
+    return BuildResult(list(targets.values()), 0.0, "")
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  cu_files = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
   start = time.perf_counter()
+  logs, failed = [], []
   with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-    out = os.path.join(tmp, path.name)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", out,
-           *cu_files]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-      raise RuntimeError(
-          f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    # Atomic: a concurrent build of the same sources writes the same file.
-    os.replace(out, path)
-  return BuildResult(path, time.perf_counter() - start, log)
+    nvcc = find_nvcc()
+    procs = {}
+    for src in todo:
+      out = os.path.join(tmp, targets[src].name)
+      cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", out, str(src)]
+      procs[src] = (cmd, out, subprocess.Popen(
+          cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for src, (cmd, out, proc) in procs.items():
+      log = proc.communicate()[0]
+      logs.append(f"{src.name}:\n{log}")
+      if proc.returncode != 0:
+        failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                      f"{log}")
+      else:
+        # Atomic: a concurrent build of the same source writes the same
+        # file.
+        os.replace(out, targets[src])
+  if failed:
+    raise RuntimeError("\n".join(failed))
+  return BuildResult(list(targets.values()), time.perf_counter() - start,
+                     "\n".join(logs))
+
+
+class _Library:
+  """The entry points of ``SIGNATURES``, each from the library that
+  exports it."""
+
+  def __init__(self, paths: List[pathlib.Path]):
+    libs = [ctypes.CDLL(str(p)) for p in paths]
+    self._fns: Dict[str, object] = {}
+    for name, argtypes in SIGNATURES.items():
+      for lib in libs:
+        try:
+          fn = getattr(lib, name)
+        except AttributeError:
+          continue
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        self._fns[name] = fn
+        break
+      else:
+        raise RuntimeError(f"no kernel library exports {name}")
+
+  def __getattr__(self, name: str):
+    try:
+      return self._fns[name]
+    except KeyError as e:
+      raise AttributeError(name) from e
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-  """The kernels' library, built on first use and loaded once."""
-  lib = ctypes.CDLL(str(build().path))
-  for name, argtypes in SIGNATURES.items():
-    fn = getattr(lib, name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-  return lib
+def library() -> _Library:
+  """The kernels' libraries, built on first use and loaded once."""
+  return _Library(build().paths)
 
 
 def check(status: int, what: str) -> None:

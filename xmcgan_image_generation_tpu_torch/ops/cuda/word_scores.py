@@ -3,19 +3,19 @@
 
 `scores` gives the ``[image, caption]`` AttnGAN match scores of unit
 region and word features (kernel ``scores_fwd`` of
-``csrc/word_scores.cu``, the port of ``_scores_kernel``), and `drn` their
+``csrc/word_scores.cu``, the port of ``_scores_kernel``); `drn` their
 gradient with respect to the regions for a cotangent of the scores
-(kernel ``scores_drn``, the port of ``_bwd_drn_kernel``).  The forward
-kernel takes the regions' Gram matrix ``rn rn^T`` (one batched matmul
-inside `scores`) and, when a gradient will follow, saves what the region
-gradient starts from into a `new_saved` buffer, which `drn` reads.  For
-CPU tensors both run their plain PyTorch versions, `scores_plain` and
-`drn_plain`.  `word_scores` is the public
-``[caption, image]`` op over raw features.
-
-The gradient with respect to the word features (``_bwd_dwn_kernel``) is
-not ported: the training step's word features are the batch's BERT
-embeddings, which take no gradient.  On the card, asking for it raises.
+(kernel ``scores_drn``, the port of ``_bwd_drn_kernel``); and `dwn` the
+gradient with respect to the words, summed over images (kernel
+``scores_dwn``, the port of ``_bwd_dwn_kernel``).  The forward kernel
+takes the regions' Gram matrix ``rn rn^T`` (one batched matmul inside
+`scores`) and, when a gradient will follow, saves what both gradients
+start from into a `new_saved` buffer, which `drn` and `dwn` read.  For
+CPU tensors each runs its plain PyTorch version (`scores_plain`,
+`drn_plain`, `dwn_plain`).  `word_scores` is the public ``[caption,
+image]`` op over raw features; on the card its backward gives the
+gradient of each input that asks for one.  The training step asks only
+for the regions': its word features are the batch's BERT embeddings.
 """
 
 from __future__ import annotations
@@ -55,6 +55,17 @@ def drn_plain(rn: torch.Tensor, wn: torch.Tensor, mask: torch.Tensor,
     s = scores_plain(x, wn.detach(), mask, gamma1, gamma2)
     (d_rn,) = torch.autograd.grad(s, x, g.t())
   return d_rn
+
+
+def dwn_plain(rn: torch.Tensor, wn: torch.Tensor, mask: torch.Tensor,
+              g: torch.Tensor, gamma1: float, gamma2: float) -> torch.Tensor:
+  """The plain version of kernel ``scores_dwn``: the gradient of
+  ``sum(g * scores_plain(rn, wn, mask).T)`` with respect to ``wn``."""
+  with torch.enable_grad():
+    y = wn.detach().requires_grad_()
+    s = scores_plain(rn.detach(), y, mask, gamma1, gamma2)
+    (d_wn,) = torch.autograd.grad(s, y, g.t())
+  return d_wn
 
 
 def _check(rn, wn, mask, g=None) -> None:
@@ -105,7 +116,8 @@ def _saved_shape(rn: torch.Tensor, wn: torch.Tensor):
 
 
 def new_saved(rn: torch.Tensor, wn: torch.Tensor) -> torch.Tensor:
-  """An empty buffer for what `scores` saves for `drn` (on the card):
+  """An empty buffer for what `scores` saves for `drn` and `dwn` (on the
+  card):
   alpha, S and G alpha of every (image, caption group)."""
   return torch.empty(_saved_shape(rn, wn), dtype=torch.float32,
                      device=rn.device)
@@ -116,8 +128,8 @@ def scores(rn: torch.Tensor, wn: torch.Tensor, mask: torch.Tensor,
            saved: torch.Tensor = None) -> torch.Tensor:
   """``[image, caption]`` scores of unit features: kernel or plain (CPU).
 
-  ``saved``, a `new_saved` buffer, receives what `drn` needs for the same
-  inputs.
+  ``saved``, a `new_saved` buffer, receives what `drn` and `dwn` need for
+  the same inputs.
   """
   _check(rn, wn, mask)
   if rn.device.type == "cpu":
@@ -186,14 +198,61 @@ def drn(rn: torch.Tensor, wn: torch.Tensor, mask: torch.Tensor,
 drn.launches = 0
 
 
+def dwn(rn: torch.Tensor, wn: torch.Tensor, mask: torch.Tensor,
+        g: torch.Tensor, saved: torch.Tensor, gamma1: float = 5.0,
+        gamma2: float = 5.0) -> torch.Tensor:
+  """Gradient of the scores with respect to ``wn`` for a ``[caption,
+  image]`` cotangent ``g``, summed over images: kernel or plain (CPU).
+
+  ``saved`` is the buffer `scores` filled for the same inputs; the plain
+  version recomputes instead and ignores it.
+  """
+  _check(rn, wn, mask, g)
+  if rn.device.type == "cpu":
+    return dwn_plain(rn, wn, mask, g, gamma1, gamma2)
+  lib, group = _kernel_shape(rn, wn)
+  _check_saved(rn, wn, saved)
+  num_images, regions, dim = rn.shape
+  num_caps, words, _ = wn.shape
+  num_groups = -(-num_caps // group)
+  # One wave of (caption group, part) blocks; each part sums its own
+  # images, and a second launch adds the parts in a fixed order.
+  sms = torch.cuda.get_device_properties(rn.device).multi_processor_count
+  parts = min(num_images, max(1, sms // num_groups))
+  d_wn = torch.empty_like(wn)
+  partial = (d_wn if parts == 1 else
+             torch.empty((parts,) + tuple(wn.shape), dtype=torch.float32,
+                         device=rn.device))
+  status = lib.xmc_word_scores_dwn(
+      rn.data_ptr(), mask.data_ptr(), g.data_ptr(), saved.data_ptr(),
+      partial.data_ptr(), d_wn.data_ptr(), num_images, num_caps, regions,
+      words, dim, parts, float(gamma1), float(gamma2),
+      torch.cuda.current_stream(rn.device).cuda_stream)
+  build.check(status, "word_scores word-gradient kernel")
+  dwn.launches += 1
+  return d_wn
+
+
+dwn.launches = 0
+
+
+def _unit_with_vjp(feat: torch.Tensor):
+  """``(x, unit)``: a leaf copy of ``feat`` and its l2-normalized float32
+  rows, with the graph between them for the normalization's VJP."""
+  with torch.enable_grad():
+    x = feat.detach().requires_grad_()
+    return x, l2_normalize(x.float(), dim=-1)
+
+
 class _WordScores(torch.autograd.Function):
-  """Kernel forward and region gradient on the card."""
+  """Kernel forward and both gradients on the card."""
 
   @staticmethod
   def forward(ctx, region_feat, word_feat, mask, gamma1, gamma2):
     rn = l2_normalize(region_feat.float(), dim=-1).contiguous()
     wn = l2_normalize(word_feat.float(), dim=-1).contiguous()
-    saved = new_saved(rn, wn) if ctx.needs_input_grad[0] else None
+    saved = (new_saved(rn, wn) if any(ctx.needs_input_grad[:2])
+             else None)
     out = scores(rn, wn, mask, gamma1, gamma2, saved=saved)
     ctx.save_for_backward(region_feat, word_feat, mask, saved)
     ctx.gammas = (gamma1, gamma2)
@@ -201,21 +260,20 @@ class _WordScores(torch.autograd.Function):
 
   @staticmethod
   def backward(ctx, g):
-    if ctx.needs_input_grad[1]:
-      raise NotImplementedError(
-          "word_scores: the gradient with respect to the word features "
-          "needs the port of _bwd_dwn_kernel (ROADMAP, queue 2)")
-    d_region = None
-    if ctx.needs_input_grad[0]:
-      region_feat, word_feat, mask, saved = ctx.saved_tensors
-      wn = l2_normalize(word_feat.float(), dim=-1).contiguous()
-      with torch.enable_grad():
-        x = region_feat.detach().requires_grad_()
-        rn = l2_normalize(x.float(), dim=-1)
-      d_rn = drn(rn.detach().contiguous(), wn, mask,
-                 g.float().contiguous(), saved, *ctx.gammas)
+    region_feat, word_feat, mask, saved = ctx.saved_tensors
+    need_region, need_word = ctx.needs_input_grad[:2]
+    g = g.float().contiguous()
+    x, rn = _unit_with_vjp(region_feat)
+    y, wn = _unit_with_vjp(word_feat)
+    rn_d, wn_d = rn.detach().contiguous(), wn.detach().contiguous()
+    d_region = d_word = None
+    if need_region:
+      d_rn = drn(rn_d, wn_d, mask, g, saved, *ctx.gammas)
       (d_region,) = torch.autograd.grad(rn, x, d_rn)
-    return d_region, None, None, None, None
+    if need_word:
+      d_wn = dwn(rn_d, wn_d, mask, g, saved, *ctx.gammas)
+      (d_word,) = torch.autograd.grad(wn, y, d_wn)
+    return d_region, d_word, None, None, None
 
 
 def word_scores(region_feat: torch.Tensor, word_feat: torch.Tensor,

@@ -127,6 +127,8 @@ class Dense(_Layer):
     init = None
     if kernel_init == "glorot_normal":
       init = lambda t: glorot_normal_(t, in_features, features, generator)  # noqa: E731
+    elif kernel_init == "lecun_normal":
+      init = lambda t: lecun_normal_(t, in_features, generator)  # noqa: E731
     elif kernel_init != "zeros":
       raise ValueError(f"unknown kernel_init {kernel_init!r}")
     super().__init__((features, in_features), features, use_bias=use_bias,
@@ -149,7 +151,8 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 
 class Conv(_Layer):
-  """NCHW convolution with TF "SAME" padding; ``kernel`` is OIHW.
+  """NCHW convolution with TF "SAME" (or "VALID") padding; ``kernel`` is
+  OIHW.
 
   ``scale_op="up"`` folds a preceding nearest 2x upsample and ``"pool"`` a
   following 2x2 average pool into a 3x3 / stride-1 conv
@@ -158,7 +161,8 @@ class Conv(_Layer):
 
   def __init__(self, in_features: int, features: int,
                kernel_size: Sequence[int] = (3, 3), *,
-               strides: Sequence[int] = (1, 1), use_bias: bool = True,
+               strides: Sequence[int] = (1, 1), padding: str = "SAME",
+               use_bias: bool = True,
                spectral: bool = False, scale_op: str = "none",
                kernel_init: str = "glorot_normal",
                dtype=torch.float32, device=None,
@@ -173,6 +177,8 @@ class Conv(_Layer):
       raise ValueError(f"unknown kernel_init {kernel_init!r}")
     if scale_op not in ("none", "up", "pool"):
       raise ValueError(f"unknown scale_op: {scale_op}")
+    if padding not in ("SAME", "VALID"):
+      raise ValueError(f"unknown padding {padding!r}")
     if scale_op != "none" and ((kh, kw) != (3, 3)
                                or tuple(strides) != (1, 1)):
       raise ValueError(f"scale_op={scale_op} requires a 3x3/stride-1 conv")
@@ -180,6 +186,7 @@ class Conv(_Layer):
                      use_bias=use_bias, spectral=spectral, init=init,
                      dtype=dtype, device=device, generator=generator)
     self.strides = tuple(strides)
+    self.padding = padding
     self.scale_op = scale_op
 
   def _kernel_2d(self):
@@ -193,6 +200,8 @@ class Conv(_Layer):
       y = scale_fuse.upsample_conv_dilated(x, w)
     elif self.scale_op == "pool":
       y = scale_fuse.conv_pool(x, w)
+    elif self.padding == "VALID":
+      y = F.conv2d(x, w, stride=self.strides)
     else:
       kh, kw = w.shape[2:]
       (pt, pb), (pl, pr) = (

@@ -36,7 +36,7 @@ ROUNDS, STEPS, WARMUP, TOP = 3, 5, 2, 25
 # Kernel-name fragments of each group, first match wins.
 GROUPS = (
     ("port kernels (ntxent, word_scores)",
-     ("ntxent_", "scores_fwd", "scores_drn", "sum_parts")),
+     ("ntxent_", "scores_fwd", "scores_drn", "scores_dwn", "sum_parts")),
     ("convolution", ("conv", "cudnn", "implicit", "dgrad", "wgrad", "fprop",
                      "xmma", "nchw", "nhwc")),
     ("matmul", ("gemm", "cutlass", "sm90", "ampere", "splitk")),

@@ -13,6 +13,11 @@ dots, so the mapping is by name; the layouts change as follows:
   vectors;
 * batches NHWC <-> NCHW (`nhwc_to_nchw`, `nchw_to_nhwc`).
 
+`flat_from_state_dict` and `state_dict_from_flat` read and write the JAX
+package's flattened ``.npz`` layout of a variables tree (``'/'``-joined
+paths under the collection, ``params/mixed0/b0_1x1/conv/kernel``), in
+which converted InceptionV3 weights are stored.
+
 This module imports no JAX.
 """
 
@@ -28,24 +33,25 @@ _STATS = {"mean": "batch_stats", "var": "batch_stats",
           "u0": "spectral_norm_stats"}
 
 
-def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
-  """``{"a": {"b": x}}`` -> ``{"a.b": x}``."""
+def flatten(tree: Mapping[str, Any], prefix: str = "",
+            sep: str = ".") -> Dict[str, Any]:
+  """``{"a": {"b": x}}`` -> ``{"a.b": x}`` (``sep`` joins the keys)."""
   out = {}
   for key, value in tree.items():
     name = f"{prefix}{key}"
     if isinstance(value, Mapping):
-      out.update(flatten(value, name + "."))
+      out.update(flatten(value, name + sep, sep))
     else:
       out[name] = value
   return out
 
 
-def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
-  """``{"a.b": x}`` -> ``{"a": {"b": x}}``."""
+def unflatten(flat: Mapping[str, Any], sep: str = ".") -> Dict[str, Any]:
+  """``{"a.b": x}`` -> ``{"a": {"b": x}}`` (keys split at ``sep``)."""
   out: Dict[str, Any] = {}
   for name, value in flat.items():
     node = out
-    *parents, leaf = name.split(".")
+    *parents, leaf = name.split(sep)
     for p in parents:
       node = node.setdefault(p, {})
     node[leaf] = value
@@ -103,6 +109,20 @@ def jax_from_state_dict(state_dict: Mapping[str, torch.Tensor]
     leaf = name.rsplit(".", 1)[-1]
     split.setdefault(_STATS.get(leaf, "params"), {})[name] = t
   return {c: tensors_to_jax(ts) for c, ts in split.items()}
+
+
+def flat_from_state_dict(state_dict: Mapping[str, torch.Tensor]
+                         ) -> Dict[str, np.ndarray]:
+  """A ``state_dict`` -> the JAX ``.npz`` layout: ``{"params/a/b/kernel":
+  array, "batch_stats/a/bn/mean": array, ...}``."""
+  return flatten(jax_from_state_dict(state_dict), sep="/")
+
+
+def state_dict_from_flat(flat: Mapping[str, np.ndarray]
+                         ) -> Dict[str, torch.Tensor]:
+  """The JAX ``.npz`` layout -> a ``state_dict`` (inverse of
+  `flat_from_state_dict`)."""
+  return state_dict_from_jax(unflatten(dict(flat), sep="/"))
 
 
 def load_jax_variables(module: nn.Module, variables: Mapping[str, Any]

@@ -1,0 +1,112 @@
+"""Checkpoints of the train state and the data stream's position (the JAX
+package's ``utils/checkpoint.py``).
+
+A checkpoint is one file, ``{directory}/checkpoint_{step}.pt``, written
+with ``torch.save`` to a temporary file that is then renamed over it, so
+a listed step is always complete.  It holds G, D (with the batch
+statistics and the spectral-norm ``u0``), the EMA, both Adam states, the
+step and the data stream's state.  Restoring into a state built by
+``create_train_state`` from the same configuration resumes exactly.  The
+newest ``max_to_keep`` checkpoints are kept.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import re
+import time
+from typing import Any, List, Optional, Tuple
+
+import torch
+
+from xmcgan_image_generation_tpu_torch.engine.state import TrainState
+from xmcgan_image_generation_tpu_torch.utils import fileio
+
+log = logging.getLogger("xmcgan_torch")
+
+_NAME = re.compile(r"^checkpoint_(\d+)\.pt$")
+
+
+def checkpoints_dir(workdir: str) -> str:
+  """The layout of the JAX package: ``{workdir}/checkpoints``."""
+  return fileio.join(workdir, "checkpoints")
+
+
+def list_steps(directory: str) -> List[int]:
+  """The steps of the checkpoints in ``directory``, ascending."""
+  if not fileio.isdir(directory):
+    return []
+  return sorted(int(m.group(1)) for m in map(_NAME.match,
+                                             fileio.listdir(directory)) if m)
+
+
+class CheckpointManager:
+  """Saves and restores `TrainState` and, with it, a data stream that
+  has ``get_state`` and ``set_state``."""
+
+  def __init__(self, directory: str, *, max_to_keep: int = 5):
+    self.directory = fileio.abspath(directory)
+    self.max_to_keep = max_to_keep
+
+  def path(self, step: int) -> str:
+    return fileio.join(self.directory, f"checkpoint_{int(step)}.pt")
+
+  def save(self, step: int, state: TrainState,
+           data_iter: Any = None) -> Tuple[float, int]:
+    """Writes the checkpoint of ``step``; returns its seconds (host clock,
+    device synchronized) and bytes."""
+    start = time.perf_counter()
+    payload = {
+        "step": state.step,
+        "generator": state.generator.state_dict(),
+        "discriminator": state.discriminator.state_dict(),
+        "ema_params": state.ema_params,
+        "g_opt": state.g_opt.state_dict(),
+        "d_opt": state.d_opt.state_dict(),
+        "data_iter": data_iter.get_state() if data_iter is not None else None,
+    }
+    fileio.makedirs(self.directory)
+    path = self.path(step)
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    for old in list_steps(self.directory)[:-self.max_to_keep]:
+      os.remove(self.path(old))
+    return time.perf_counter() - start, os.path.getsize(path)
+
+  def restore(self, step: int, state: TrainState,
+              data_iter: Any = None) -> TrainState:
+    """Loads the checkpoint of ``step`` into ``state`` (in place) and, when
+    given, the data stream; returns ``state``."""
+    device = next(state.generator.parameters()).device
+    payload = torch.load(self.path(step), map_location=device,
+                         weights_only=True)
+    state.generator.load_state_dict(payload["generator"])
+    state.discriminator.load_state_dict(payload["discriminator"])
+    with torch.no_grad():
+      for name, value in payload["ema_params"].items():
+        state.ema_params[name].copy_(value)
+    state.g_opt.load_state_dict(payload["g_opt"])
+    state.d_opt.load_state_dict(payload["d_opt"])
+    state.step = int(payload["step"])
+    if data_iter is not None and payload["data_iter"] is not None:
+      data_iter.set_state(payload["data_iter"])
+    log.info("Restored checkpoint %s", self.path(step))
+    return state
+
+  def restore_or_initialize(self, state: TrainState,
+                            data_iter: Any = None) -> TrainState:
+    """Restores the latest checkpoint if there is one, else returns
+    ``state`` as it is."""
+    step = self.latest_step()
+    if step is None:
+      return state
+    return self.restore(step, state, data_iter)
+
+  def latest_step(self) -> Optional[int]:
+    steps = self.all_steps()
+    return steps[-1] if steps else None
+
+  def all_steps(self) -> List[int]:
+    return list_steps(self.directory)
