@@ -8,11 +8,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    (one ``nvcc`` per source, all at once) and prints the build time and
    ``-Xptxas -v`` lines;
 3. holds each kernel against its plain PyTorch version at the flagship
-   shapes, with float32 and with bfloat16 inputs (TF32 off), and times
-   both with CUDA events; drives ``word_scores`` differentiated with
-   respect to regions and words (kernels B, C and D) and checks that each
-   launched; then takes one small float32 step (test config) with the
-   kernels and with the einsum heads and compares the losses;
+   shapes, with float32 and with bfloat16 inputs (TF32 off), on random
+   regions and on peaked ones (built from their caption's words), checks
+   that two region-gradient calls agree bit for bit, and times each
+   kernel and its plain version with CUDA events, beside the same dense
+   products through ``torch.bmm`` (a yardstick the port never calls);
+   drives ``word_scores`` differentiated with respect to regions and
+   words (kernels B, C and D) and checks that each launched; then takes
+   one small float32 step (test config) with the kernels and with the
+   einsum heads and compares the losses;
 4. trains the flagship configuration (128 px, 2 x 56 super-batch,
    bfloat16, every contrastive head and the ResNet-50 tower) for a few
    outer steps through ``train.train``, checks the losses are finite and
@@ -50,9 +54,13 @@ EVAL_AVG_NUM = 1         # of 3
 
 # The least time of a kernel's work: the larger of its bytes (inputs read
 # once, outputs written once) over the memory rate and its operations over
-# the peak rate for its inputs' type, published for one H100 SXM at 700 W.
+# the peak rate of its route, published for one H100 SXM at 700 W:
+# float32 FMA on the CUDA cores, bfloat16 tensor cores, and float32
+# products on the TF32 tensor cores in the 3xTF32 split (three TF32
+# products each).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12,
+                  "tf32x3": 495e12 / 3}
 
 
 def fail(msg: str) -> None:
@@ -85,11 +93,12 @@ def time_ms(fn, iters: int = KERNEL_ITERS) -> float:
   return start.elapsed_time(end) / iters
 
 
-def set_bound(record, nbytes, ops, dtype):
+def set_bound(record, nbytes, ops, rate):
   t_bytes = nbytes / HBM_BYTES_PER_S
-  t_ops = ops / PEAK_OPS_PER_S[dtype]
+  t_ops = ops / PEAK_OPS_PER_S[rate]
   record["bound_ms"] = max(t_bytes, t_ops) * 1e3
   record["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+  return t_bytes * 1e3, ops / PEAK_OPS_PER_S["float32"] * 1e3
 
 
 def word_scores_bounds(records, n, regions, words, dim, saved_bytes):
@@ -98,18 +107,26 @@ def word_scores_bounds(records, n, regions, words, dim, saved_bytes):
   and G alpha; reads rn, wn and the mask; writes the scores and the
   record.  C forms E wn, H = alpha diag(b) alpha^T and H rn; reads rn, wn,
   the mask, g and the record; writes d_rn.  D forms E^T rn; reads rn, the
-  mask, g and the record; writes d_wn."""
+  mask, g and the record; writes d_wn.  B and C take the 3xTF32 route, D
+  float32 FMA.  Returns each kernel's bytes-bound and float32-FMA-bound
+  ms."""
   rn, wn = 4 * n * regions * dim, 4 * n * words * dim
   mask, scores = 4 * n * words, 4 * n * n       # g is the size of scores
   sim = 2 * n * n * regions * words * dim       # one [R, L, D] product per pair
   gram = 2 * n * regions * regions * dim
   g_alpha = 2 * n * n * words * regions * regions
-  set_bound(records["word_scores_fwd"], rn + wn + mask + scores
-            + saved_bytes, sim + gram + g_alpha, "float32")
-  set_bound(records["word_scores_drn"], rn + wn + mask + scores
-            + saved_bytes + rn, sim + g_alpha + gram, "float32")
-  set_bound(records["word_scores_dwn"], rn + mask + scores + saved_bytes
-            + wn, sim, "float32")
+  return {
+      "word_scores_fwd": set_bound(
+          records["word_scores_fwd"], rn + wn + mask + scores + saved_bytes,
+          sim + gram + g_alpha, "tf32x3"),
+      "word_scores_drn": set_bound(
+          records["word_scores_drn"],
+          rn + wn + mask + scores + saved_bytes + rn, sim + g_alpha + gram,
+          "tf32x3"),
+      "word_scores_dwn": set_bound(
+          records["word_scores_dwn"], rn + mask + scores + saved_bytes + wn,
+          sim, "float32"),
+  }
 
 
 def check_kernels(torch, records):
@@ -130,6 +147,9 @@ def check_kernels(torch, records):
           f"(tolerance {tol:.1e}) {status}", flush=True)
     if err > tol:
       fail(f"{name} [{dtype}] disagrees with its plain version")
+
+  errors = {"word_scores_fwd": 0.0, "word_scores_drn": 0.0,
+            "word_scores_dwn": 0.0}
 
   # A: NT-Xent on post-ReLU-like pooled features.  Both sides reduce in
   # f32 from the same inputs; only the summation order differs.
@@ -153,74 +173,98 @@ def check_kernels(torch, records):
   set_bound(records["ntxent"], 2 * 2 * batch * pool_dim + 12,
             2 * batch * batch * pool_dim + 6 * batch * pool_dim, "bfloat16")
 
-  # B and C: word-region scores and their region gradient.
+  # B, C and D: word-region scores and their two gradients, on random
+  # regions and on peaked ones: 3 x a real word of the image's own caption
+  # plus 0.5 x noise, which gives sharp alpha and |S| near 1, as trained
+  # features do.
   max_len = torch.randint(3, words + 1, (batch, 1), device=dev,
-                          generator=gen).float()
-  mask = padding_mask(max_len, words).contiguous()
+                          generator=gen)
+  mask = padding_mask(max_len.float(), words).contiguous()
   word = torch.randn(batch, words, dim, device=dev, generator=gen)
   wn = l2_normalize(word).contiguous()
-  for dtype in (torch.float32, torch.bfloat16):
-    region = torch.randn(batch, regions, dim, device=dev,
-                         generator=gen).to(dtype)
-    rn = l2_normalize(region.float()).contiguous()
-    got = ws.scores(rn, wn, mask, g1, g2)
-    want = ws.scores_plain(rn, wn, mask, g1, g2)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    report("word_scores_fwd", str(dtype), err, 1e-4)
-    if dtype == torch.float32:
-      records["word_scores_fwd"]["max_abs_err"] = err
 
-    # C through autograd: the public op (kernels B and C) against the
-    # plain formulation, with one random cotangent.
-    g = torch.randn(batch, batch, device=dev, generator=gen)
-    x1 = region.clone().requires_grad_()
-    ws.word_scores(x1, word, mask, g1, g2).backward(g)
-    x2 = region.clone().requires_grad_()
-    rn2 = l2_normalize(x2.float())
-    ws.scores_plain(rn2, wn, mask, g1, g2).t().backward(g)
-    torch.cuda.synchronize()
-    ref = x2.grad.float()
-    err = float((x1.grad.float() - ref).abs().max())
-    # f32: summation order only.  bf16: the gradient is rounded to bf16 on
-    # both sides, so one bf16 ulp (2^-8 relative) may separate them.
-    rel = 1e-4 if dtype == torch.float32 else 8e-3
-    report("word_scores_drn (autograd)", str(dtype), err,
-           rel * float(ref.abs().max()))
-    if dtype == torch.float32:
-      saved = ws.new_saved(rn, wn)
-      ws.scores(rn, wn, mask, g1, g2, saved)
-      d_got = ws.drn(rn, wn, mask, g, saved, g1, g2)
-      d_want = ws.drn_plain(rn, wn, mask, g, g1, g2)
-      torch.cuda.synchronize()
-      err = float((d_got - d_want).abs().max())
-      report("word_scores_drn", str(dtype), err,
-             1e-4 * float(d_want.abs().max()))
-      records["word_scores_drn"]["max_abs_err"] = err
-      d_got = ws.dwn(rn, wn, mask, g, saved, g1, g2)
-      d_want = ws.dwn_plain(rn, wn, mask, g, g1, g2)
-      torch.cuda.synchronize()
-      err = float((d_got - d_want).abs().max())
-      report("word_scores_dwn", str(dtype), err,
-             1e-4 * float(d_want.abs().max()))
-      records["word_scores_dwn"]["max_abs_err"] = err
+  def peaked_regions():
+    pick = (torch.rand(batch, regions, device=dev, generator=gen)
+            * max_len).long()
+    base = torch.gather(word, 1, pick[..., None].expand(-1, -1, dim))
+    return 3 * base + 0.5 * torch.randn(batch, regions, dim, device=dev,
+                                        generator=gen)
 
-    # D through autograd: both gradients asked at once (kernels B, C, D)
-    # against plain autograd of the plain formulation.
-    word_in = torch.randn(batch, words, dim, device=dev,
-                          generator=gen).to(dtype)
-    x1, y1 = region.clone().requires_grad_(), word_in.clone().requires_grad_()
-    ws.word_scores(x1, y1, mask, g1, g2).backward(g)
-    x2, y2 = region.clone().requires_grad_(), word_in.clone().requires_grad_()
-    ws.scores_plain(l2_normalize(x2.float()), l2_normalize(y2.float()), mask,
-                    g1, g2).t().backward(g)
-    torch.cuda.synchronize()
-    for what, got, ref in (("region_feat.grad", x1.grad, x2.grad),
-                           ("word_feat.grad", y1.grad, y2.grad)):
-      ref = ref.float()
-      report(f"word_scores both gradients, {what}", str(dtype),
-             float((got.float() - ref).abs().max()),
+  for kind in ("random", "peaked"):
+    for dtype in (torch.float32, torch.bfloat16):
+      region = (torch.randn(batch, regions, dim, device=dev, generator=gen)
+                if kind == "random" else peaked_regions()).to(dtype)
+      label = f"{kind}, {dtype}"
+      rn = l2_normalize(region.float()).contiguous()
+      got = ws.scores(rn, wn, mask, g1, g2)
+      want = ws.scores_plain(rn, wn, mask, g1, g2)
+      torch.cuda.synchronize()
+      err = float((got - want).abs().max())
+      report("word_scores_fwd", label, err, 1e-4)
+      if dtype == torch.float32:
+        errors["word_scores_fwd"] = max(errors["word_scores_fwd"], err)
+
+      # C through autograd: the public op (kernels B and C) against the
+      # plain formulation, with one random cotangent.
+      g = torch.randn(batch, batch, device=dev, generator=gen)
+      x1 = region.clone().requires_grad_()
+      ws.word_scores(x1, word, mask, g1, g2).backward(g)
+      x2 = region.clone().requires_grad_()
+      rn2 = l2_normalize(x2.float())
+      ws.scores_plain(rn2, wn, mask, g1, g2).t().backward(g)
+      torch.cuda.synchronize()
+      ref = x2.grad.float()
+      err = float((x1.grad.float() - ref).abs().max())
+      # f32: summation order only.  bf16: the gradient is rounded to bf16
+      # on both sides, so one bf16 ulp (2^-8 relative) may separate them.
+      rel = 1e-4 if dtype == torch.float32 else 8e-3
+      report("word_scores_drn (autograd)", label, err,
              rel * float(ref.abs().max()))
+      if dtype == torch.float32:
+        saved = ws.new_saved(rn, wn)
+        ws.scores(rn, wn, mask, g1, g2, saved)
+        d_got = ws.drn(rn, wn, mask, g, saved, g1, g2)
+        d_again = ws.drn(rn, wn, mask, g, saved, g1, g2)
+        d_want = ws.drn_plain(rn, wn, mask, g, g1, g2)
+        torch.cuda.synchronize()
+        err = float((d_got - d_want).abs().max())
+        report("word_scores_drn", label, err,
+               1e-4 * float(d_want.abs().max()))
+        errors["word_scores_drn"] = max(errors["word_scores_drn"], err)
+        identical = bool(torch.equal(d_got, d_again))
+        print(f"  word_scores_drn [{label}]: two calls bit-identical: "
+              f"{identical}", flush=True)
+        if not identical:
+          fail("two word_scores_drn calls on the same inputs differ")
+        d_got = ws.dwn(rn, wn, mask, g, saved, g1, g2)
+        d_want = ws.dwn_plain(rn, wn, mask, g, g1, g2)
+        torch.cuda.synchronize()
+        err = float((d_got - d_want).abs().max())
+        report("word_scores_dwn", label, err,
+               1e-4 * float(d_want.abs().max()))
+        errors["word_scores_dwn"] = max(errors["word_scores_dwn"], err)
+
+      # D through autograd: both gradients asked at once (kernels B, C,
+      # D) against plain autograd of the plain formulation; the peaked
+      # regions' own words.
+      word_in = (torch.randn(batch, words, dim, device=dev, generator=gen)
+                 if kind == "random" else word).to(dtype)
+      x1 = region.clone().requires_grad_()
+      y1 = word_in.clone().requires_grad_()
+      ws.word_scores(x1, y1, mask, g1, g2).backward(g)
+      x2 = region.clone().requires_grad_()
+      y2 = word_in.clone().requires_grad_()
+      ws.scores_plain(l2_normalize(x2.float()), l2_normalize(y2.float()),
+                      mask, g1, g2).t().backward(g)
+      torch.cuda.synchronize()
+      for what, got, ref in (("region_feat.grad", x1.grad, x2.grad),
+                             ("word_feat.grad", y1.grad, y2.grad)):
+        ref = ref.float()
+        report(f"word_scores both gradients, {what}", label,
+               float((got.float() - ref).abs().max()),
+               rel * float(ref.abs().max()))
+  for name, err in errors.items():
+    records[name]["max_abs_err"] = err
 
   # Timed as the training step runs them: the forward kernel (with the
   # regions' Gram matmul) saving what the region gradient starts from,
@@ -246,12 +290,33 @@ def check_kernels(torch, records):
       lambda: ws.dwn(rn, wn, mask, g, saved, g1, g2))
   records["word_scores_dwn"]["plain_ms"] = time_ms(
       lambda: torch.autograd.grad(s_plain_w, y, g.t(), retain_graph=True))
-  word_scores_bounds(records, batch, regions, words, dim,
-                     saved.numel() * saved.element_size())
+  other_bounds = word_scores_bounds(records, batch, regions, words, dim,
+                                    saved.numel() * saved.element_size())
   for name, rec in records.items():
-    print(f"  {name}: kernel {rec['ms']:.4f} ms, plain "
-          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-          f"({rec['bound_by']})", flush=True)
+    line = (f"  {name}: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']})")
+    if name in other_bounds:
+      bytes_ms, fma_ms = other_bounds[name]
+      line += (f"; bytes alone {bytes_ms:.4f} ms, float32 FMA on the CUDA "
+               f"cores {fma_ms:.4f} ms")
+    print(line, flush=True)
+
+  # The same dense products as one torch.bmm each (float32, TF32 off):
+  # C's [E ; -H]^T [wn ; rn] with K = 72-row caption groups + R, and B's
+  # rn wn^T over all captions.  A yardstick only; the port never calls it.
+  rows = -(-batch // (72 // words)) * 72 + regions
+  a = torch.randn(batch, regions, rows, device=dev, generator=gen)
+  b = torch.randn(batch, rows, dim, device=dev, generator=gen)
+  c = torch.randn(batch, dim, batch * words, device=dev, generator=gen)
+  yardstick = {
+      f"drn [{batch}, {regions}, {rows}] x [{batch}, {rows}, {dim}]":
+          time_ms(lambda: torch.bmm(a, b)),
+      f"fwd [{batch}, {regions}, {dim}] x [{batch}, {dim}, {batch * words}]":
+          time_ms(lambda: torch.bmm(rn, c)),
+  }
+  print(f"  gemm_yardstick_ms {json.dumps(yardstick)} (torch.bmm, float32, "
+        f"TF32 off)", flush=True)
 
   def kernel_pair():
     ws.scores(rn, wn, mask, g1, g2, saved)

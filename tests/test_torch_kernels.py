@@ -6,7 +6,8 @@ run in interpret mode, at a small size with a ragged mask, for float32
 and for bfloat16 inputs.  Inputs come from a numpy seed.
 
 GPU tests (marker ``gpu``): each CUDA kernel against its plain version at
-the flagship shapes.  They need a card and skip without one; on the card
+the flagship shapes, on random regions and on peaked ones (built from
+their caption's words), and two region-gradient calls bit for bit.  They need a card and skip without one; on the card
 run ``python -m pytest -m gpu --noconftest tests/test_torch_kernels.py``
 (the JAX package is not needed there).
 """
@@ -229,13 +230,24 @@ def test_word_loss_pallas_path_matches_jax(reference):
 # ---------------------------------------------------------------------------
 
 
-def _flagship(device, seed=0):
+def _flagship(device, seed=0, kind="random"):
+  """Flagship inputs.  ``peaked``: each region is 3 x a real word of the
+  image's own caption plus 0.5 x noise, which gives sharp alpha and |S|
+  near 1, as trained features do."""
   gen = torch.Generator(device=device).manual_seed(seed)
   region = torch.randn(56, 256, 768, device=device, generator=gen)
   word = torch.randn(56, 17, 768, device=device, generator=gen)
   max_len = torch.randint(3, 18, (56, 1), device=device, generator=gen)
   g = torch.randn(56, 56, device=device, generator=gen)
+  if kind == "peaked":
+    pick = (torch.rand(56, 256, device=device, generator=gen)
+            * max_len).long()
+    region = (3 * torch.gather(word, 1, pick[..., None].expand(-1, -1, 768))
+              + 0.5 * region)
   return region, word, padding_mask(max_len, 17).contiguous(), g
+
+
+KINDS = ["random", "peaked"]
 
 
 @pytest.mark.gpu
@@ -253,9 +265,10 @@ def test_gpu_ntxent_kernel(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gpu_word_scores_kernel(cuda, dtype):
-  region, word, mask, _ = _flagship(cuda)
+def test_gpu_word_scores_kernel(cuda, dtype, kind):
+  region, word, mask, _ = _flagship(cuda, kind=kind)
   rn = l2_normalize(region.to(dtype).float()).contiguous()
   wn = l2_normalize(word).contiguous()
   got = ws.scores(rn, wn, mask, GAMMA, GAMMA)
@@ -264,9 +277,10 @@ def test_gpu_word_scores_kernel(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gpu_word_scores_region_gradient(cuda, dtype):
-  region, word, mask, g = _flagship(cuda, seed=2)
+def test_gpu_word_scores_region_gradient(cuda, dtype, kind):
+  region, word, mask, g = _flagship(cuda, seed=2, kind=kind)
   region = region.to(dtype)
   x1 = region.clone().requires_grad_()
   ws.word_scores(x1, word, mask, GAMMA, GAMMA).backward(g)
@@ -280,9 +294,32 @@ def test_gpu_word_scores_region_gradient(cuda, dtype):
 
 
 @pytest.mark.gpu
-def test_gpu_word_gradient_kernel(cuda):
+@pytest.mark.parametrize("kind", KINDS)
+def test_gpu_region_gradient_kernel(cuda, kind):
+  """Kernel C against its plain version from the record kernel B saved,
+  and two calls on the same inputs bit for bit (every output tile is
+  summed by one block in a fixed order)."""
+  region, word, mask, g = _flagship(cuda, seed=5, kind=kind)
+  rn = l2_normalize(region).contiguous()
+  wn = l2_normalize(word).contiguous()
+  saved = ws.new_saved(rn, wn)
+  ws.scores(rn, wn, mask, GAMMA, GAMMA, saved)
+  before = ws.drn.launches
+  got = ws.drn(rn, wn, mask, g, saved, GAMMA, GAMMA)
+  again = ws.drn(rn, wn, mask, g, saved, GAMMA, GAMMA)
+  assert ws.drn.launches == before + 2
+  assert torch.equal(got, again)
+  want = ws.drn_plain(rn, wn, mask, g, GAMMA, GAMMA)
+  # float32 accuracy on both sides (3xTF32 on the card), TF32 off in the
+  # plain version: summation order only.
+  assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+def test_gpu_word_gradient_kernel(cuda, kind):
   """Kernel D against its plain version, from the record kernel B saved."""
-  region, word, mask, g = _flagship(cuda, seed=3)
+  region, word, mask, g = _flagship(cuda, seed=3, kind=kind)
   rn = l2_normalize(region).contiguous()
   wn = l2_normalize(word).contiguous()
   saved = ws.new_saved(rn, wn)
@@ -296,11 +333,12 @@ def test_gpu_word_gradient_kernel(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gpu_word_scores_both_gradients(cuda, dtype):
+def test_gpu_word_scores_both_gradients(cuda, dtype, kind):
   """The public op with both inputs asking for a gradient: kernels B, C
   and D against plain autograd."""
-  region, word, mask, g = _flagship(cuda, seed=4)
+  region, word, mask, g = _flagship(cuda, seed=4, kind=kind)
   region, word = region.to(dtype), word.to(dtype)
   x1 = region.clone().requires_grad_()
   y1 = word.clone().requires_grad_()

@@ -17,52 +17,88 @@
 // Bound: at the flagship (56 images x 56 captions, R = 256, L = 17,
 //   D = 768) the inputs are 44 MB (rn) and 3 MB (wn), the gradients also
 //   read the forward's 174 MB record, and the work is 10-17 GFMA per
-//   kernel, so arithmetic bounds all three: f32 FMA on the CUDA cores
-//   in this version.  A block's products are small matrix products whose
-//   operands sit in shared memory, and shared-memory bandwidth (one
-//   128-byte wavefront per clock per SM against four warp FMAs) bounds
-//   them unless each loaded value feeds several FMAs.
-// Design: a block owns one image and a group of G = kMaxWords / L whole
-//   captions (G L <= kMaxWords = 72 words).  Every product is register-
-//   tiled: lane l holds regions l, l + 32, ..., l + 224 and warp j holds
-//   9 words (9j..9j+8) or 8 columns (features, or columns of H), so that
-//   16-17 loads feed 64-72 FMAs.  A warp thus holds all regions of its words, and the softmax
-//   over regions, ctx.wn and |ctx|^2 reduce with warp shuffles.  The
-//   per-caption logsumexp over L words is a short loop, with no
-//   group-indicator matmul (the TPU needed one only because Mosaic cannot
-//   split a lane axis).  rn_i (768 KB) does not fit in shared memory, so
-//   a D-long product walks D in chunks of kChunk.  The caller supplies the
-//   region Gram matrix G_i = rn_i rn_i^T [R, R] (one batched matmul per
-//   call), which turns D-long passes into R-long ones:
+//   kernel, so arithmetic bounds all three.
+// Precision: the forward (B) and the region gradient (C) run every product
+//   on the tensor cores in the 3xTF32 split of tf32x3.cuh, which keeps
+//   float32 accuracy at a third of the TF32 rate (165 TFLOP/s against
+//   67 for float32 FMA on the CUDA cores).  Single-pass TF32 is not
+//   enough: d_rn = E wn - H rn is a difference of two large terms that
+//   amplifies each product's rounding.  The word gradient (D) is float32
+//   FMA on the CUDA cores.
+// The region Gram matrix G_i = rn_i rn_i^T [R, R] (one batched matmul per
+//   call, by the caller) turns D-long passes into R-long ones:
 //     ctx_w . wn_w = sum_r alpha[r, w] S[r, w]
 //     |ctx_w|^2    = alpha_w^T G_i alpha_w
 //     d_alpha      = rn d_ctx^T = a S - b G_i alpha   (d_ctx = a wn - b ctx)
-//   The forward makes one D-long pass (S).  When a gradient will be asked
-//   for, it also saves alpha, S, G alpha, ctx.wn and |ctx|^2 of each
-//   (image, group), and the region gradient starts from them.  That writes
-//   d_rn = alpha d_ctx + d_sim wn = E wn - H rn_i with E = alpha a + d_sim
-//   and H = alpha diag(b) alpha^T [R, R]: per caption group it adds E wn
-//   (R x D x words) to its d_rn and alpha diag(b) alpha^T to H (kept in a
-//   global scratch), and once, after its last group, it subtracts H rn_i,
-//   so ctx is never rebuilt.  The TPU summed
-//   d_rn over caption chunks in an output block carried across a
-//   sequential grid; Hopper blocks run in no order, so block (i, p) loops
-//   over caption groups p, p + P, ... of image i and owns partial[p, i]
-//   and its own H, and a second launch sums the P partials in a fixed
-//   order: deterministic, no atomics.
-// The word gradient starts from the same record and the same E:
-//   d_wn_c = sum_i (ca alpha + d_sim)^T rn_i = sum_i E_i^T rn_i, one D-long
-//   product per (image, caption group) and no D-long pass for d_alpha.
-//   The TPU summed d_wn over images in an output block revisited on
-//   consecutive grid steps; here block (group, p) loops over images p,
-//   p + P, ..., rebuilds E from the record, adds E_i^T rn_i into its own
-//   partial[p] (read and written back per image, from L2), and the same
-//   second launch sums the P partials in a fixed order.
+//
+// B (scores_fwd): a block owns one image and two groups of G =
+//   kMaxWords / L whole captions (G L <= 72 words each, 144 word rows),
+//   since the softmax over regions needs all regions of a word in one
+//   block, and two groups halve the re-reads of rn_i and G_i.
+//   S = rn_i wn^T runs on wgmma: rn_i and the words stream through a ring
+//   of 3 cp.async stages of 32 features; the words of a stage are split
+//   once for all warps into big and small core-matrix planes that the
+//   tensor cores read by descriptor, and each warpgroup splits the rn_i
+//   fragments of its 128 regions in registers (ldmatrix), loading the next
+//   8 features while the tensor cores run.  S then goes to shared memory,
+//   where each warp takes 18 word rows: the softmax over regions, ctx.wn =
+//   sum alpha S and the S record row in float32 with warp shuffles, alpha
+//   written in place.  G alpha runs on mma.sync, G_i streaming through a
+//   ring of 2 stages against alpha in shared memory (the split alpha would
+//   not fit beside it for wgmma), and gives |ctx|^2 = sum alpha (G alpha).
+//   When a gradient will be asked for, the block saves alpha, S and G
+//   alpha of each (image, group) as [word][region] planes, then ctx.wn
+//   and |ctx|^2 (the record); the alpha and G alpha planes go out by the
+//   bulk-copy engine while the block computes on.
+// C (scores_drn_chain, then scores_drn_gemm twice): the same algebra
+//   written over all captions at once for image i,
+//     d_rn_i = E_i wn_all - H_i rn_i,  E_i = alpha ca + d_sim [R, K],
+//     H_i = (alpha diag(cb)) alpha^T [R, R],
+//   with K = caption groups x 72 words (groups padded to 72 with zero
+//   rows: 1008 at the flagship).  Pass 1, one block per (image, group),
+//   runs the cotangent chain from the record and writes E and F = cb alpha
+//   transposed, [region][word row], through shared memory: the K-major
+//   layout in which wgmma reads a float32 operand from shared memory.
+//   Pass 2 forms H_i = alpha^T F and stores -H_i beside E_i.  Pass 3 is
+//   one product per image, d_rn_i^T = [wn ; rn_i]^T [E_i | -H_i]^T with
+//   K = 1008 + R, in 128 x 128 output tiles (features x regions) that each
+//   belong to one block: every tile is accumulated in registers over the
+//   whole K and written once, so no partial goes through device memory and
+//   two calls give bit-identical results.  Both products run on wgmma and
+//   stream their operands through a ring of 3 cp.async stages.
+// D (scores_dwn): from the same record and the same E, d_wn_c = sum_i
+//   (ca alpha + d_sim)^T rn_i = sum_i E_i^T rn_i, one D-long product per
+//   (image, caption group).  The TPU summed d_wn over images in an output
+//   block revisited on consecutive grid steps; here block (group, p)
+//   loops over images p, p + P, ..., rebuilds E from the record, adds
+//   E_i^T rn_i into its own partial[p] (read and written back per image,
+//   from L2), and a second launch sums the P partials in a fixed order.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32x3.cuh"
+
 namespace {
+
+using tf32x3::bulk_commit;
+using tf32x3::bulk_store;
+using tf32x3::bulk_wait;
+using tf32x3::bulk_wait_read;
+using tf32x3::cp_async16;
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait;
+using tf32x3::fence_operand;
+using tf32x3::fence_proxy_async;
+using tf32x3::ldmatrix_x4;
+using tf32x3::mma;
+using tf32x3::smem_desc;
+using tf32x3::split;
+using tf32x3::wgmma_commit;
+using tf32x3::wgmma_fence;
+using tf32x3::wgmma_m64n128k8;
+using tf32x3::wgmma_m64n72k8;
+using tf32x3::wgmma_wait;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -70,18 +106,68 @@ constexpr int kMaxRegions = 256;
 constexpr int kRegionsPerLane = kMaxRegions / 32;  // 8
 constexpr int kWordsPerWarp = 9;
 constexpr int kMaxWords = kWarps * kWordsPerWarp;  // 72
-constexpr int kRS = kMaxRegions + 1;   // odd row stride of [word|k][region]
-constexpr int kChunk = 32;             // feature chunk of a D-long pass
-constexpr int kWLd = kMaxWords + 1;    // odd row stride of [k][word]
-constexpr int kDChunk = 64;            // feature chunk of the d_rn products
-constexpr int kWChunk = 256;           // feature chunk of the d_wn product
-// What the forward saves per (image, caption group) for the region
-// gradient: alpha, S and G alpha as [kMaxWords][kMaxRegions], then ctx.wn
-// and |ctx|^2 per word.
+constexpr int kWordTiles = kMaxWords / 8;          // 9 n8 tiles
+// What the forward saves per (image, caption group) for the gradients:
+// alpha, S and G alpha as [kMaxWords][kMaxRegions], then ctx.wn and
+// |ctx|^2 per word.
 constexpr int kPlane = kMaxWords * kMaxRegions;
 constexpr int kRecord = 3 * kPlane + 2 * kMaxWords;
 constexpr float kNegInf = -1e9f;
-static_assert(kDChunk / kWarps == 8, "d_rn tiles are 8 regions x 8 columns");
+static_assert(kRecord % 4 == 0, "records start 16-byte aligned");
+
+// Tensor-core kernels (B and C).
+constexpr int kTileK = 32;                 // depth of the forward's stages
+constexpr int kRowLd = kTileK + 4;         // [row][k] tiles: conflict-free
+constexpr int kPlaneLd = kMaxRegions + 4;  // [word][region] planes
+// B: a block owns two caption groups (144 word rows).  A ring of rn/wn
+// stages for S, then the S and alpha planes in its place, and a ring of
+// Gram stages for G alpha above them, whose space then stages G alpha.
+constexpr int kFwdGroups = 2;
+constexpr int kFwdWords = kFwdGroups * kMaxWords;
+constexpr int kFwdWordTiles = kFwdWords / 8;
+constexpr int kFwdStages = 3;
+constexpr int kGramStages = 2;
+// A stage holds rn_i as [region][kRowLd] and the words as wgmma's
+// K-major core matrices, [k / 4][word][4].
+constexpr int kFwdWordStage = kFwdWords * kTileK;
+constexpr int kFwdStage = kMaxRegions * kRowLd + kFwdWordStage;
+constexpr int kGramStage = kMaxRegions * kRowLd;
+constexpr int kFwdGram = kFwdWords * kPlaneLd;
+constexpr int kFwdGramSpace = kGramStages * kGramStage > kMaxWords * kPlaneLd
+                                  ? kGramStages * kGramStage
+                                  : kMaxWords * kPlaneLd;
+constexpr int kFwdSmall = kFwdGram + kFwdGramSpace;
+constexpr int kFwdSmemFloats = kFwdSmall + 3 * kFwdWords;
+static_assert(kFwdStages * kFwdStage + kFwdWordStage <= kFwdSmall,
+              "the S ring and its split words lie below the small arrays");
+static_assert(kFwdSmemFloats * sizeof(float) <= 232448,
+              "shared memory of scores_fwd exceeds what a block can use");
+// C: the chain's transpose, then 128 x 128 output tiles from stages of A
+// as [k][m] and B as wgmma's K-major core matrices, plus one plane for
+// B's split.
+constexpr int kChainLd = kMaxWords + 1;    // [region][word]: conflict-free
+constexpr int kGemmM = 128;
+constexpr int kGemmN = 128;
+constexpr int kGemmK = 64;                 // deep stages: few per tile
+constexpr int kGemmLd = kGemmM + 8;        // [k][m] tiles: conflict-free
+constexpr int kGemmStages = 2;
+constexpr int kGemmStage = kGemmK * kGemmLd + kGemmK * kGemmN;
+constexpr int kGemmSmemFloats = kGemmStages * kGemmStage + kGemmK * kGemmN;
+static_assert(kGemmSmemFloats * sizeof(float) <= 232448,
+              "shared memory of scores_drn_gemm exceeds what a block can use");
+static_assert(kGemmM == kGemmN && kMaxRegions % kGemmM == 0,
+              "H is whole tiles");
+
+// Kernel D (CUDA cores).
+constexpr int kRS = kMaxRegions + 1;   // odd row stride of [word|k][region]
+constexpr int kWChunk = 256;           // feature chunk of the d_wn product
+constexpr int kSmall = 8 * kMaxWords;  // 5 arrays, padded to a multiple of 4
+constexpr int kDwnSmemFloats = 2 * kMaxWords * kRS + 32 * kRS + kSmall;
+static_assert((kMaxWords * kRS) % 4 == 0 && (32 * kRS) % 4 == 0,
+              "16-byte aligned arrays");
+static_assert(kWChunk == 8 * 32, "d_wn tiles are 32 regions x 256 features");
+static_assert(kDwnSmemFloats * sizeof(float) <= 232448,
+              "shared memory of scores_dwn exceeds what a block can use");
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -97,50 +183,6 @@ struct Shape {
   int num_images, num_caps, regions, words, dim;  // words = L
 };
 
-using Tile = float[kRegionsPerLane][kWordsPerWarp];
-using Tile8 = float[kRegionsPerLane][8];
-
-// Shared memory, in floats; every array starts 16-byte aligned.
-struct Smem {
-  float* alpha;   // [kMaxWords][kRS]: softmax weights
-  float* tile;    // [kChunk][kRS]: rn chunk (transposed), 32 rows of G or
-                  // H, or [kMaxWords][kDChunk] words of a chunk
-  float* wtile;   // [kChunk][kWLd] words of a chunk, or [32][kDChunk] rn
-  float* mask;    // [kMaxWords], and below, one value per word
-  float* num;     // ctx . wn
-  float* csq;     // |ctx|^2
-  float* ca;      // d_ctx = ca wn - cb ctx
-  float* cb;
-  float* sim;     // backward: [kMaxWords][kRS], S then E = alpha ca + d_sim
-};
-
-constexpr int kSmall = 8 * kMaxWords;  // 5 arrays, padded to a multiple of 4
-constexpr int kFwdSmemFloats = kMaxWords * kRS + kChunk * kRS +
-                               kChunk * kWLd + kSmall;
-constexpr int kBwdSmemFloats = kFwdSmemFloats + kMaxWords * kRS;
-static_assert((kMaxWords * kRS) % 4 == 0 && (kChunk * kRS) % 4 == 0 &&
-              (kChunk * kWLd) % 4 == 0, "16-byte aligned arrays");
-static_assert(kMaxWords * kDChunk <= kChunk * kRS &&
-              32 * kDChunk <= kChunk * kWLd, "d_rn chunks fit the tiles");
-static_assert(32 * kWChunk <= kChunk * kRS && kWChunk == 8 * 32,
-              "d_wn tiles are 32 regions x 256 features, 8 per lane");
-static_assert(kBwdSmemFloats * sizeof(float) <= 232448,
-              "shared memory of scores_drn exceeds what a block can use");
-
-__device__ Smem carve(float* base) {
-  Smem s;
-  s.alpha = base;
-  s.tile = s.alpha + kMaxWords * kRS;
-  s.wtile = s.tile + kChunk * kRS;
-  s.mask = s.wtile + kChunk * kWLd;
-  s.num = s.mask + kMaxWords;
-  s.csq = s.num + kMaxWords;
-  s.ca = s.csq + kMaxWords;
-  s.cb = s.ca + kMaxWords;
-  s.sim = s.mask + kSmall;
-  return s;
-}
-
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -148,180 +190,786 @@ __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-// acc[i][n] = m[lane + 32 i, col0 + n] of a row-major [rows, cols] matrix
-// with row stride ld (zero outside it, or everywhere when `zero`).  col0
-// and ld are multiples of 4.
-__device__ void load_tile8(Tile8& acc, const float* m, int ld, int rows,
-                           int cols, int col0, bool zero) {
+__device__ __forceinline__ float row_logit(const float* num, const float* csq,
+                                           const float* mask, int w,
+                                           float gamma2) {
+  const float inv = rsqrtf(fmaxf(csq[w], 1e-12f));
+  return num[w] * inv * gamma2 + mask[w] * kNegInf;
+}
+
+// logsumexp over the `words` words of the caption starting at word w0.
+__device__ float caption_lse(const float* num, const float* csq,
+                             const float* mask, int w0, int words,
+                             float gamma2) {
+  float m = -INFINITY;
+  for (int w = 0; w < words; ++w)
+    m = fmaxf(m, row_logit(num, csq, mask, w0 + w, gamma2));
+  float z = 0.f;
+  for (int w = 0; w < words; ++w)
+    z += expf(row_logit(num, csq, mask, w0 + w, gamma2) - m);
+  return m + logf(z);
+}
+
+// The logsumexp VJP, then the cosine VJP, of word t (< the group's words)
+// of the caption group at c0 for image i: d_ctx = ca wn - cb ctx.
+__device__ void word_coefficients(const float* num, const float* csq,
+                                  const float* mask, const float* g,
+                                  const Shape& sh, int i, int c0, int t,
+                                  float gamma2, float& ca, float& cb) {
+  const int cap = t / sh.words;
+  const float lse = caption_lse(num, csq, mask, cap * sh.words, sh.words,
+                                gamma2);
+  const float beta = expf(row_logit(num, csq, mask, t, gamma2) - lse);
+  const float d_rowsim = g[(size_t)(c0 + cap) * sh.num_images + i] * beta;
+  const float inv = rsqrtf(fmaxf(csq[t], 1e-12f));
+  const float rowsim = num[t] * inv;
+  const float guard = csq[t] >= 1e-12f ? 1.f : 0.f;
+  ca = d_rowsim * inv;
+  cb = guard * d_rowsim * rowsim * inv * inv;
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core fragments (PTX ISA register layouts of mma.m16n8k8 .tf32:
+// lane = 4 g + t holds A (g | g + 8, t | t + 4), B (t | t + 4, g) and
+// C (g | g + 8, 2 t | 2 t + 1)), each value split into (big, small).
+// ---------------------------------------------------------------------------
+
+// A rows m0.., depth k0.. of a [k][ld] tile.
+__device__ __forceinline__ void frag_a_krow(const float* tile, int ld, int m0,
+                                            int k0, uint32_t (&big)[4],
+                                            uint32_t (&small)[4]) {
   const int lane = threadIdx.x & 31;
-  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int i = 0; i < kRegionsPerLane; ++i) {
-    const int r = lane + 32 * i;
-    const float* p = m + (size_t)r * ld + col0;
-    const bool ok = !zero && r < rows;
-    const float4 a = ok && col0 + 4 <= cols ? ld4(p) : z;
-    const float4 b = ok && col0 + 8 <= cols ? ld4(p + 4) : z;
-    acc[i][0] = a.x; acc[i][1] = a.y; acc[i][2] = a.z; acc[i][3] = a.w;
-    acc[i][4] = b.x; acc[i][5] = b.y; acc[i][6] = b.z; acc[i][7] = b.w;
-  }
+  const float* p = tile + (k0 + (lane & 3)) * ld + m0 + (lane >> 2);
+  split(p[0], big[0], small[0]);
+  split(p[8], big[1], small[1]);
+  split(p[4 * ld], big[2], small[2]);
+  split(p[4 * ld + 8], big[3], small[3]);
 }
 
-__device__ void store_tile8(const Tile8& acc, float* m, int ld, int rows,
-                            int cols, int col0) {
+// ---------------------------------------------------------------------------
+// B: scores_fwd.
+// ---------------------------------------------------------------------------
+
+// One warp's accumulators: regions fwd_row0(mi) + (g | g + 8), word rows
+// 8 nj + 2 t + (0 | 1) of the block's two caption groups.  Warpgroup q
+// (warps 4q..4q+3) holds regions 128 q.., in two 64-row tiles of which
+// warp 4q + v holds rows 16 v..16 v + 15.
+using FwdAcc = float[2][kFwdWordTiles][4];
+
+__device__ __forceinline__ int fwd_row0(int mi) {
+  const int warp = threadIdx.x >> 5;
+  return 128 * (warp >> 2) + 64 * mi + 16 * (warp & 3);
+}
+__device__ __forceinline__ int fwd_region(int mi, int h) {
+  return fwd_row0(mi) + ((threadIdx.x & 31) >> 2) + 8 * h;
+}
+__device__ __forceinline__ int fwd_word(int nj, int e) {
+  return 8 * nj + 2 * (threadIdx.x & 3) + e;
+}
+
+__device__ __forceinline__ void split4(uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+#pragma unroll
+  for (int x = 0; x < 4; ++x) split(__uint_as_float(big[x]), big[x], small[x]);
+}
+
+// acc += A B over one stage of depth kTileK by mma.sync: A the
+// [region][lda] tile, B a [word][ldb] tile read from depth kb on, both
+// split here.  Fragments come by ldmatrix; each B fragment feeds the three
+// passes of the split for both of the warp's region tiles.
+__device__ __forceinline__ void fwd_stage_product(FwdAcc& acc, const float* a,
+                                                  int lda, const float* b,
+                                                  int ldb, int kb) {
   const int lane = threadIdx.x & 31;
+  // Rows and columns each lane addresses: A blocks (rows 0-7 | 8-15) x
+  // (k 0-3 | 4-7); B blocks (k 0-3 | 4-7) x (words 0-7 | 8-15).
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_k = (lane >> 4) * 4;
+  const int b_row = (lane & 7) + (lane >> 4) * 8, b_k = ((lane >> 3) & 1) * 4;
 #pragma unroll
-  for (int i = 0; i < kRegionsPerLane; ++i) {
-    const int r = lane + 32 * i;
-    if (r >= rows) continue;
-    float* p = m + (size_t)r * ld + col0;
-    if (col0 + 4 <= cols)
-      st4(p, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-    if (col0 + 8 <= cols)
-      st4(p + 4, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
-  }
-}
-
-// Chunk d0 of rn_i, transposed: tile[k][r] = rn_i[r, d0 + k] (float4
-// loads: the wrapper guarantees dim % 4 == 0).
-__device__ void load_rn_chunk(const Smem& s, const float* rn_i,
-                              const Shape& sh, int d0) {
-  constexpr int kQuadsPerRow = kChunk / 4;
-  for (int idx = threadIdx.x; idx < kMaxRegions * kQuadsPerRow;
-       idx += kThreads) {
-    const int r = idx / kQuadsPerRow, k = 4 * (idx % kQuadsPerRow);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < sh.regions && d0 + k < sh.dim)
-      v = *reinterpret_cast<const float4*>(rn_i + (size_t)r * sh.dim + d0 +
-                                           k);
-    s.tile[k * kRS + r] = v.x;
-    s.tile[(k + 1) * kRS + r] = v.y;
-    s.tile[(k + 2) * kRS + r] = v.z;
-    s.tile[(k + 3) * kRS + r] = v.w;
-  }
-}
-
-// Pass 1: S tile = rn_i wn_g^T for this thread's regions and words.
-__device__ void similarity(const Smem& s, const float* rn_i,
-                           const float* wn_g, const Shape& sh, int num_words,
-                           Tile& acc) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int kk = 0; kk < kTileK; kk += 8) {
+    uint32_t ab[2][4], as[2][4];
 #pragma unroll
-  for (int i = 0; i < kRegionsPerLane; ++i)
-#pragma unroll
-    for (int m = 0; m < kWordsPerWarp; ++m) acc[i][m] = 0.f;
-  for (int d0 = 0; d0 < sh.dim; d0 += kChunk) {
-    __syncthreads();
-    load_rn_chunk(s, rn_i, sh, d0);
-    for (int idx = threadIdx.x; idx < kMaxWords * kChunk; idx += kThreads) {
-      const int w = idx / kChunk, k = idx % kChunk;
-      s.wtile[k * kWLd + w] = (w < num_words && d0 + k < sh.dim)
-                                  ? wn_g[(size_t)w * sh.dim + d0 + k] : 0.f;
+    for (int mi = 0; mi < 2; ++mi) {
+      ldmatrix_x4(ab[mi], a + (fwd_row0(mi) + a_row) * lda + kk + a_k);
+      split4(ab[mi], as[mi]);
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < kChunk; ++k) {
-      const float* tk = s.tile + k * kRS + lane;
-      const float* wk = s.wtile + k * kWLd + warp * kWordsPerWarp;
-      float x[kRegionsPerLane], y[kWordsPerWarp];
 #pragma unroll
-      for (int i = 0; i < kRegionsPerLane; ++i) x[i] = tk[32 * i];
+    for (int nj = 0; nj < kFwdWordTiles; nj += 2) {
+      const int off = (8 * nj + b_row) * ldb + kb + kk + b_k;
+      uint32_t bb[4], bs[4];
+      ldmatrix_x4(bb, b + off);
+      split4(bb, bs);
 #pragma unroll
-      for (int m = 0; m < kWordsPerWarp; ++m) y[m] = wk[m];
+      for (int p = 0; p < 2; ++p) {
+        const uint32_t b_big[2] = {bb[2 * p], bb[2 * p + 1]};
+        const uint32_t b_sm[2] = {bs[2 * p], bs[2 * p + 1]};
 #pragma unroll
-      for (int i = 0; i < kRegionsPerLane; ++i)
+        for (int mi = 0; mi < 2; ++mi) mma(acc[mi][nj + p], as[mi], b_big);
 #pragma unroll
-        for (int m = 0; m < kWordsPerWarp; ++m) acc[i][m] += x[i] * y[m];
-    }
-  }
-}
-
-// In registers: acc = S -> alpha (softmax over regions of g1 S + m NEG_INF;
-// zero outside the regions and words); s.num[w] = sum_r alpha S.  Writes
-// alpha to s.alpha.
-__device__ void attention_weights(const Smem& s, Tile& acc, const Shape& sh,
-                                  int num_words, float gamma1) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+        for (int mi = 0; mi < 2; ++mi) mma(acc[mi][nj + p], ab[mi], b_sm);
 #pragma unroll
-  for (int m = 0; m < kWordsPerWarp; ++m) {
-    const int w = warp * kWordsPerWarp + m;
-    float num = 0.f;
-    if (w < num_words) {  // uniform over the warp
-      const float bias = s.mask[w] * kNegInf;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < kRegionsPerLane; ++i)
-        if (lane + 32 * i < sh.regions)
-          mx = fmaxf(mx, acc[i][m] * gamma1 + bias);
-      mx = warp_max(mx);
-      float z = 0.f, es = 0.f;
-#pragma unroll
-      for (int i = 0; i < kRegionsPerLane; ++i) {
-        const float e = lane + 32 * i < sh.regions
-                            ? expf(acc[i][m] * gamma1 + bias - mx) : 0.f;
-        es += e * acc[i][m];
-        z += e;
-        acc[i][m] = e;
+        for (int mi = 0; mi < 2; ++mi) mma(acc[mi][nj + p], ab[mi], b_big);
       }
-      z = warp_sum(z);
-      num = warp_sum(es) / z;
+    }
+  }
+}
+
+// `n` floats of a stage's B operand split once for all warps: big in
+// place, small into `small` (the same layout), then fenced for the tensor
+// cores' reads.
+__device__ __forceinline__ void split_plane(float* words, float* small,
+                                            int n) {
+  for (int c = threadIdx.x; c < n / 4; c += kThreads) {
+    const int off = 4 * c;
+    const float4 v = ld4(words + off);
+    uint32_t big[4] = {__float_as_uint(v.x), __float_as_uint(v.y),
+                       __float_as_uint(v.z), __float_as_uint(v.w)};
+    uint32_t sm[4];
+    split4(big, sm);
+    st4(words + off, make_float4(__uint_as_float(big[0]),
+                                 __uint_as_float(big[1]),
+                                 __uint_as_float(big[2]),
+                                 __uint_as_float(big[3])));
+    st4(small + off, make_float4(__uint_as_float(sm[0]),
+                                 __uint_as_float(sm[1]),
+                                 __uint_as_float(sm[2]),
+                                 __uint_as_float(sm[3])));
+  }
+  fence_proxy_async();
+}
+
+// S += the stage's rn_i tile times its split words, by wgmma: A (this
+// warp's rows) split in registers, B big and small by descriptor, the
+// three passes in order, each as two 64 x 72 products per region tile.
+// The A fragments of the next 8 features load and split while the tensor
+// cores work on the last ones (two register buffers).
+__device__ __forceinline__ void sim_stage_wgmma(FwdAcc& acc, const float* a,
+                                                const float* big,
+                                                const float* small) {
+  // Core matrices: the next 4 features kFwdWords x 16 bytes on, the next
+  // 8 words 128 bytes on.
+  constexpr uint32_t kLead = kFwdWords * 16, kStride = 128;
+  const int lane = threadIdx.x & 31;
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_k = (lane >> 4) * 4;
+  uint32_t ab[2][2][4], as[2][2][4];  // [buffer][region tile][fragment]
 #pragma unroll
-      for (int i = 0; i < kRegionsPerLane; ++i) acc[i][m] /= z;
+  for (int kk = 0; kk < kTileK; kk += 8) {
+    const int buf = (kk / 8) & 1;
+    if (kk >= 16) {
+      wgmma_wait<1>();  // the products that read this buffer are done
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          fence_operand(ab[buf][mi][x]);
+          fence_operand(as[buf][mi][x]);
+        }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      ldmatrix_x4(ab[buf][mi],
+                  a + (fwd_row0(mi) + a_row) * kRowLd + kk + a_k);
+      split4(ab[buf][mi], as[buf][mi]);
+    }
+    const int off = (kk / 4) * kFwdWords * 4;
+    const uint64_t big0 = smem_desc(big + off, kLead, kStride);
+    const uint64_t big1 = smem_desc(big + off + kMaxWords * 4, kLead, kStride);
+    const uint64_t sm0 = smem_desc(small + off, kLead, kStride);
+    const uint64_t sm1 = smem_desc(small + off + kMaxWords * 4, kLead, kStride);
+    wgmma_fence();
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      wgmma_m64n72k8<0>(acc[mi], as[buf][mi], big0);
+      wgmma_m64n72k8<kWordTiles>(acc[mi], as[buf][mi], big1);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      wgmma_m64n72k8<0>(acc[mi], ab[buf][mi], sm0);
+      wgmma_m64n72k8<kWordTiles>(acc[mi], ab[buf][mi], sm1);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      wgmma_m64n72k8<0>(acc[mi], ab[buf][mi], big0);
+      wgmma_m64n72k8<kWordTiles>(acc[mi], ab[buf][mi], big1);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        fence_operand(ab[b][mi][x]);
+        fence_operand(as[b][mi][x]);
+      }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < kFwdWordTiles; ++nj)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) fence_operand(acc[mi][nj][x]);
+}
+
+// The block's two caption groups: their first caption, their word count
+// (0 past the last group) and their records (null when nothing is saved).
+struct FwdGroups {
+  int c0[kFwdGroups], num_words[kFwdGroups];
+  float* record[kFwdGroups];
+  // By a group index known only at run time (ternaries keep the arrays in
+  // registers).
+  __device__ int first(int h) const { return h ? c0[1] : c0[0]; }
+  __device__ int words(int h) const { return h ? num_words[1] : num_words[0]; }
+  __device__ float* rec(int h) const { return h ? record[1] : record[0]; }
+  __device__ bool real(int u) const {
+    return u < kMaxWords ? u < num_words[0] : u - kMaxWords < num_words[1];
+  }
+};
+
+// Stage of features k0.. of rn_i and of the two groups' words (layouts at
+// kFwdStage); zeros outside the regions, words and features.
+__device__ __forceinline__ void load_sim_stage(float* stage,
+                                               const float* rn_i,
+                                               const float* wn,
+                                               const FwdGroups& gr,
+                                               const Shape& sh, int k0) {
+  constexpr int kQuads = kTileK / 4;
+  for (int c = threadIdx.x; c < (kMaxRegions + kFwdWords) * kQuads;
+       c += kThreads) {
+    const int row = c / kQuads, q = 4 * (c % kQuads);
+    const float* src = rn_i;
+    float* dst;
+    bool ok = k0 + q < sh.dim;
+    if (row < kMaxRegions) {
+      ok = ok && row < sh.regions;
+      src = rn_i + (size_t)row * sh.dim;
+      dst = stage + row * kRowLd + q;
     } else {
-#pragma unroll
-      for (int i = 0; i < kRegionsPerLane; ++i) acc[i][m] = 0.f;
+      const int u = row - kMaxRegions;
+      const int second = u >= kMaxWords, j = u - second * kMaxWords;
+      ok = ok && gr.real(u);
+      src = wn + ((size_t)gr.first(second) * sh.words + j) * sh.dim;
+      dst = stage + kMaxRegions * kRowLd + ((q / 4) * kFwdWords + u) * 4;
     }
-    if (lane == 0) s.num[w] = num;
-#pragma unroll
-    for (int i = 0; i < kRegionsPerLane; ++i)
-      s.alpha[w * kRS + lane + 32 * i] = acc[i][m];
+    cp_async16(dst, ok ? src + k0 + q : rn_i, ok);
   }
 }
 
-// p tile = (G_i alpha) for this thread's regions and words (G_i is
-// symmetric, so a warp reads 32 rows of it side by side).
-__device__ void gram_times_alpha(const Smem& s, const float* gram_i,
-                                 const Shape& sh, Tile& p) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < kRegionsPerLane; ++i)
-#pragma unroll
-    for (int m = 0; m < kWordsPerWarp; ++m) p[i][m] = 0.f;
-  for (int r0 = 0; r0 < sh.regions; r0 += kChunk) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kChunk * kMaxRegions;
-         idx += kThreads) {
-      const int rr = idx / kMaxRegions, c = idx % kMaxRegions;
-      s.tile[rr * kRS + c] = (r0 + rr < sh.regions && c < sh.regions)
-          ? gram_i[(size_t)(r0 + rr) * sh.regions + c] : 0.f;
-    }
-    __syncthreads();
-    const float* ar = s.alpha + warp * kWordsPerWarp * kRS + r0;
-#pragma unroll 4
-    for (int rr = 0; rr < kChunk; ++rr) {
-      float g[kRegionsPerLane], a[kWordsPerWarp];
-#pragma unroll
-      for (int i = 0; i < kRegionsPerLane; ++i)
-        g[i] = s.tile[rr * kRS + lane + 32 * i];
-#pragma unroll
-      for (int m = 0; m < kWordsPerWarp; ++m) a[m] = ar[m * kRS + rr];
-#pragma unroll
-      for (int i = 0; i < kRegionsPerLane; ++i)
-#pragma unroll
-        for (int m = 0; m < kWordsPerWarp; ++m) p[i][m] += g[i] * a[m];
-    }
+// Stage of columns k0.. of the [ld][ld] Gram matrix: [region][kRowLd].
+__device__ __forceinline__ void load_gram_stage(float* stage,
+                                                const float* gram_i, int ld,
+                                                int k0) {
+  constexpr int kQuads = kTileK / 4;
+  for (int c = threadIdx.x; c < kMaxRegions * kQuads; c += kThreads) {
+    const int r = c / kQuads, q = 4 * (c % kQuads);
+    const bool ok = r < ld && k0 + q < ld;
+    cp_async16(stage + r * kRowLd + q,
+               ok ? gram_i + (size_t)r * ld + k0 + q : gram_i, ok);
   }
 }
 
-// This thread's tile of a [kMaxWords][kMaxRegions] plane of a record.
-__device__ void save_tile(const Tile& v, float* plane) {
+// A [kMaxWords][kPlaneLd] plane of shared memory into a record plane
+// [kMaxWords][kMaxRegions] by the bulk-copy engine, one copy per word row,
+// issued and committed by warp 0, so that the writes to device memory
+// drain while the block computes.  The plane's writers fence for the
+// asynchronous proxy and synchronize first; warp 0 waits (`bulk_wait_read`)
+// before the plane is overwritten.
+__device__ __forceinline__ void store_plane(float* dst, const float* plane) {
+  if (threadIdx.x < 32) {
+    for (int w = threadIdx.x; w < kMaxWords; w += 32)
+      bulk_store(dst + w * kMaxRegions, plane + w * kPlaneLd,
+                 kMaxRegions * sizeof(float));
+    bulk_commit();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+scores_fwd(const float* __restrict__ rn, const float* __restrict__ wn,
+           const float* __restrict__ mask, const float* __restrict__ gram,
+           float* __restrict__ out, float* __restrict__ saved, Shape sh,
+           int group, int gram_ld, float gamma1, float gamma2) {
+  extern __shared__ float4 smem4[];
+  float* const sm = reinterpret_cast<float*>(smem4);
+  float* const planes = sm;                 // S, then alpha (after the ring)
+  float* const words_small = sm + kFwdStages * kFwdStage;  // S ring's words
+  float* const gram_ring = sm + kFwdGram;   // then G alpha of one group
+  float* const s_mask = sm + kFwdSmall;
+  float* const s_num = s_mask + kFwdWords;
+  float* const s_csq = s_num + kFwdWords;
+  const int t = threadIdx.x;
+  const int i = blockIdx.y;
+  const int num_groups = (sh.num_caps + group - 1) / group;
+  FwdGroups gr;
+#pragma unroll
+  for (int h = 0; h < kFwdGroups; ++h) {
+    const int grp = kFwdGroups * blockIdx.x + h;
+    gr.c0[h] = grp * group;
+    gr.num_words[h] =
+        grp < num_groups ? min(group, sh.num_caps - gr.c0[h]) * sh.words : 0;
+    gr.record[h] = saved && gr.num_words[h]
+                       ? saved + ((size_t)i * num_groups + grp) * kRecord
+                       : nullptr;
+  }
+  const float* rn_i = rn + (size_t)i * sh.regions * sh.dim;
+  const float* gram_i = gram + (size_t)i * gram_ld * gram_ld;
+  for (int u = t; u < kFwdWords; u += kThreads) {
+    const int second = u >= kMaxWords, j = u - second * kMaxWords;
+    s_mask[u] = gr.real(u)
+                    ? mask[(size_t)gr.first(second) * sh.words + j] : 0.f;
+  }
+
+  // S = rn_i wn^T through the ring.
+  FwdAcc acc;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < kFwdWordTiles; ++nj)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[mi][nj][x] = 0.f;
+  const int nk = (sh.dim + kTileK - 1) / kTileK;
+  for (int s = 0; s < kFwdStages - 1; ++s) {
+    if (s < nk)
+      load_sim_stage(sm + s * kFwdStage, rn_i, wn, gr, sh, s * kTileK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kFwdStages - 2>();
+    __syncthreads();
+    float* stage = sm + (kt % kFwdStages) * kFwdStage;
+    split_plane(stage + kMaxRegions * kRowLd, words_small, kFwdWordStage);
+    __syncthreads();
+    const int next = kt + kFwdStages - 1;
+    if (next < nk)
+      load_sim_stage(sm + (next % kFwdStages) * kFwdStage, rn_i, wn, gr, sh,
+                     next * kTileK);
+    cp_async_commit();
+    sim_stage_wgmma(acc, stage, stage + kMaxRegions * kRowLd, words_small);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // The Gram ring's first stages load during the softmax.
+  const int nkg = (gram_ld + kTileK - 1) / kTileK;
+  for (int s = 0; s < kGramStages - 1; ++s) {
+    if (s < nkg)
+      load_gram_stage(gram_ring + s * kGramStage, gram_i, gram_ld,
+                      s * kTileK);
+    cp_async_commit();
+  }
+
+  // S into `planes`, from the accumulators' layout.
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < kFwdWordTiles; ++nj)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        planes[fwd_word(nj, x & 1) * kPlaneLd + fwd_region(mi, x >> 1)] =
+            acc[mi][nj][x];
+  __syncthreads();
+
+  // Per word row (warp j: rows 18j..18j+17; lane l: regions l + 32 q):
+  // S into the record, alpha = softmax over regions of g1 S + m NEG_INF
+  // (zero outside the regions and the groups' words) over S in `planes`,
+  // and ctx.wn = sum alpha S.
+  const int lane = t & 31, warp = t >> 5;
+  for (int m = 0; m < kFwdWords / kWarps; ++m) {
+    const int w = (kFwdWords / kWarps) * warp + m;
+    const int second = w >= kMaxWords, j = w - second * kMaxWords;
+    float* record = gr.rec(second);
+    float* row = planes + w * kPlaneLd;
+    const float bias = s_mask[w] * kNegInf;
+    float v[kRegionsPerLane], mx = -INFINITY;
+#pragma unroll
+    for (int q = 0; q < kRegionsPerLane; ++q) {
+      const int r = lane + 32 * q;
+      v[q] = row[r];
+      if (record) record[kPlane + j * kMaxRegions + r] = v[q];
+      if (r < sh.regions) mx = fmaxf(mx, v[q] * gamma1 + bias);
+    }
+    mx = warp_max(mx);
+    float x[kRegionsPerLane], z = 0.f, zs = 0.f;
+#pragma unroll
+    for (int q = 0; q < kRegionsPerLane; ++q) {
+      x[q] = lane + 32 * q < sh.regions ? expf(v[q] * gamma1 + bias - mx)
+                                        : 0.f;
+      z += x[q];
+      zs += x[q] * v[q];
+    }
+    z = warp_sum(z);
+    zs = warp_sum(zs);
+    const bool real = gr.real(w);
+#pragma unroll
+    for (int q = 0; q < kRegionsPerLane; ++q)
+      row[lane + 32 * q] = real ? x[q] / z : 0.f;
+    if (lane == 0) s_num[w] = real ? zs / z : 0.f;
+  }
+  fence_proxy_async();
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < kFwdGroups; ++h)
+    if (gr.record[h])
+      store_plane(gr.record[h], planes + h * kMaxWords * kPlaneLd);
+
+  // G alpha through the Gram ring, against alpha in `planes`.
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < kFwdWordTiles; ++nj)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[mi][nj][x] = 0.f;
+  for (int kt = 0; kt < nkg; ++kt) {
+    cp_async_wait<kGramStages - 2>();
+    __syncthreads();
+    const int next = kt + kGramStages - 1;
+    if (next < nkg)
+      load_gram_stage(gram_ring + (next % kGramStages) * kGramStage, gram_i,
+                      gram_ld, next * kTileK);
+    cp_async_commit();
+    fwd_stage_product(acc, gram_ring + (kt % kGramStages) * kGramStage,
+                      kRowLd, planes, kPlaneLd, kt * kTileK);
+  }
+  cp_async_wait<0>();
+
+  // Per group: G alpha through the ring's space into the record, and
+  // |ctx|^2 = sum alpha (G alpha) per word row (warp j: rows 9j..9j+8).
+#pragma unroll
+  for (int h = 0; h < kFwdGroups; ++h) {
+    if (h && t < 32) bulk_wait_read();  // the first group's G alpha is out
+    __syncthreads();
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = h * kWordTiles; nj < (h + 1) * kWordTiles; ++nj)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          gram_ring[(fwd_word(nj, x & 1) - h * kMaxWords) * kPlaneLd +
+                    fwd_region(mi, x >> 1)] = acc[mi][nj][x];
+    fence_proxy_async();
+    __syncthreads();
+    if (gr.record[h]) store_plane(gr.record[h] + 2 * kPlane, gram_ring);
+    for (int m = 0; m < kWordsPerWarp; ++m) {
+      const int j = kWordsPerWarp * warp + m, w = h * kMaxWords + j;
+      float c = 0.f;
+#pragma unroll
+      for (int q = 0; q < kRegionsPerLane; ++q)
+        c += planes[w * kPlaneLd + lane + 32 * q] *
+             gram_ring[j * kPlaneLd + lane + 32 * q];
+      c = warp_sum(c);
+      if (lane == 0) s_csq[w] = c;
+    }
+  }
+  __syncthreads();
+  for (int u = t; u < kFwdWords; u += kThreads) {
+    const int second = u >= kMaxWords, j = u - second * kMaxWords;
+    float* record = gr.rec(second);
+    if (record) {
+      record[3 * kPlane + j] = s_num[u];
+      record[3 * kPlane + kMaxWords + j] = s_csq[u];
+    }
+  }
+  for (int q = t; q < kFwdGroups * group; q += kThreads) {
+    const int second = q >= group, cap = q - second * group;
+    const int w0 = second * kMaxWords;
+    if (cap * sh.words < gr.words(second))
+      out[(size_t)i * sh.num_caps + gr.first(second) + cap] =
+          caption_lse(s_num + w0, s_csq + w0, s_mask + w0, cap * sh.words,
+                      sh.words, gamma2) /
+          gamma2;
+  }
+  if (t < 32) bulk_wait();
+}
+
+// ---------------------------------------------------------------------------
+// C: scores_drn_chain, then scores_drn_gemm for H and for d_rn.
+// ---------------------------------------------------------------------------
+
+// Pass 1, block (caption group, image i): the cotangent chain of the
+// group from its record.  With d_ctx = ca wn - cb ctx, d_alpha = ca S -
+// cb G alpha and the softmax VJP d_sim = g1 (t - alpha sum_r t), t =
+// alpha d_alpha, it writes E = alpha ca + d_sim into columns group * 72..
+// of the image's operand `ops` and F = cb alpha into columns group * 72..
+// of its `fbuf`, both [region][word row], through a transpose in shared
+// memory.  Warp j holds words 9j..9j+8, lane l regions l + 32 q.
+__global__ void __launch_bounds__(kThreads)
+scores_drn_chain(const float* __restrict__ saved,
+                 const float* __restrict__ mask, const float* __restrict__ g,
+                 float* __restrict__ ops, float* __restrict__ fbuf, Shape sh,
+                 int group, int kp, float gamma1, float gamma2) {
+  __shared__ float s_mask[kMaxWords], s_num[kMaxWords], s_csq[kMaxWords];
+  __shared__ float s_ca[kMaxWords], s_cb[kMaxWords];
+  extern __shared__ float4 smem4[];
+  float* const tr = reinterpret_cast<float*>(smem4);  // [region][word]
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int grp = blockIdx.x, i = blockIdx.y;
+  const int c0 = grp * group;
+  const int num_words = min(group, sh.num_caps - c0) * sh.words;
+  const float* record = saved + ((size_t)i * gridDim.x + grp) * kRecord;
+  if (t < kMaxWords) {
+    s_mask[t] = t < num_words ? mask[(size_t)c0 * sh.words + t] : 0.f;
+    s_num[t] = record[3 * kPlane + t];
+    s_csq[t] = record[3 * kPlane + kMaxWords + t];
+  }
+  __syncthreads();
+  if (t < kMaxWords) {
+    float ca = 0.f, cb = 0.f;
+    if (t < num_words)
+      word_coefficients(s_num, s_csq, s_mask, g, sh, i, c0, t, gamma2, ca,
+                        cb);
+    s_ca[t] = ca;
+    s_cb[t] = cb;
+  }
+  __syncthreads();
+  // E, then F, each through `tr` into its [region][word row] rows.
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int m = 0; m < kWordsPerWarp; ++m) {
+      const int w = warp * kWordsPerWarp + m;
+      const float* row = record + w * kMaxRegions + lane;
+      float a[kRegionsPerLane];
+#pragma unroll
+      for (int q = 0; q < kRegionsPerLane; ++q) a[q] = row[32 * q];
+      if (pass == 0) {
+        const float ca = s_ca[w], cb = s_cb[w];
+        float tp[kRegionsPerLane], colsum = 0.f;
+#pragma unroll
+        for (int q = 0; q < kRegionsPerLane; ++q) {
+          tp[q] = a[q] * (ca * row[kPlane + 32 * q] -
+                          cb * row[2 * kPlane + 32 * q]);
+          colsum += tp[q];
+        }
+        colsum = warp_sum(colsum);
+#pragma unroll
+        for (int q = 0; q < kRegionsPerLane; ++q)
+          tr[(lane + 32 * q) * kChainLd + w] =
+              a[q] * ca + gamma1 * (tp[q] - a[q] * colsum);
+      } else {
+        const float cb = s_cb[w];
+#pragma unroll
+        for (int q = 0; q < kRegionsPerLane; ++q)
+          tr[(lane + 32 * q) * kChainLd + w] = a[q] * cb;
+      }
+    }
+    __syncthreads();
+    float* out = pass == 0 ? ops + (size_t)i * kMaxRegions * (kp + kMaxRegions)
+                           : fbuf + (size_t)i * kMaxRegions * kp;
+    const int ld = pass == 0 ? kp + kMaxRegions : kp;
+    for (int idx = t; idx < kMaxRegions * kMaxWords; idx += kThreads) {
+      const int r = idx / kMaxWords, j = idx - r * kMaxWords;
+      out[(size_t)r * ld + grp * kMaxWords + j] = tr[r * kChainLd + j];
+    }
+    __syncthreads();
+  }
+}
+
+// The operands of a product out[i] = A_i^T B_i^T of depth K: row k of
+// A_i ([k][m], `a_width` wide, null for a row of zeros), row n of B_i
+// ([n][k]: K-major, kMaxRegions rows of `b_length` >= K), and where a pair
+// of results (m, n), (m, n + 1) goes.
+
+// Pass 2: H_i = alpha_i^T F_i over the image's kp word rows (alpha's rows
+// straight from the record), stored negated beside E_i: H is symmetric,
+// so row r of ops holds -H[r][.] at columns kp...
+struct HProduct {
+  const float* fbuf;
+  const float* saved;
+  float* ops;
+  int kp, num_groups;
+  __device__ int depth() const { return kp; }
+  __device__ int a_width() const { return kMaxRegions; }
+  __device__ const float* a_row(int i, int k) const {
+    const int grp = k / kMaxWords;
+    return saved + ((size_t)i * num_groups + grp) * kRecord +
+           (size_t)(k - grp * kMaxWords) * kMaxRegions;
+  }
+  __device__ int b_length() const { return kp; }
+  __device__ const float* b_row(int i, int n) const {
+    return fbuf + ((size_t)i * kMaxRegions + n) * kp;
+  }
+  __device__ void store(int i, int m, int n, float v0, float v1) const {
+    *reinterpret_cast<float2*>(
+        ops + ((size_t)i * kMaxRegions + m) * (kp + kMaxRegions) + kp + n) =
+        make_float2(-v0, -v1);
+  }
+};
+
+// Pass 3: d_rn_i^T = [wn_all ; rn_i]^T [E_i | -H_i]^T, depth kp + R: rows
+// m are features, columns n regions.
+struct DrnProduct {
+  const float* ops;
+  const float* wn;
+  const float* rn;
+  float* d_rn;
+  Shape sh;
+  int group, kp;
+  __device__ int depth() const { return kp + sh.regions; }
+  __device__ int a_width() const { return sh.dim; }
+  __device__ const float* a_row(int i, int k) const {
+    if (k >= kp) return rn + ((size_t)i * sh.regions + (k - kp)) * sh.dim;
+    const int grp = k / kMaxWords, j = k - grp * kMaxWords;
+    const int c0 = grp * group;
+    const int num_words = min(group, sh.num_caps - c0) * sh.words;
+    return j < num_words ? wn + ((size_t)c0 * sh.words + j) * sh.dim
+                         : nullptr;
+  }
+  __device__ int b_length() const { return kp + kMaxRegions; }
+  __device__ const float* b_row(int i, int n) const {
+    return ops + ((size_t)i * kMaxRegions + n) * (kp + kMaxRegions);
+  }
+  __device__ void store(int i, int m, int n, float v0, float v1) const {
+    if (m >= sh.dim) return;
+    float* p = d_rn + ((size_t)i * sh.regions + n) * sh.dim + m;
+    if (n < sh.regions) p[0] = v0;
+    if (n + 1 < sh.regions) p[sh.dim] = v1;
+  }
+};
+
+// Stage kt of the product: A rows as [k][kGemmLd] (columns m0..), zeros
+// past the depth, the width and null rows; B rows n0.. as wgmma's K-major
+// core matrices, [k / 4][n][4].
+template <class Product>
+__device__ __forceinline__ void load_gemm_stage(float* stage,
+                                                const Product& op, int i,
+                                                int m0, int n0, int kt) {
+  constexpr int kQuads = kGemmM / 4;
+  const int k0 = kt * kGemmK;
+  const float* fallback = op.b_row(i, 0);
+  for (int c = threadIdx.x; c < kGemmK * kQuads; c += kThreads) {
+    const int kr = c / kQuads, q = 4 * (c % kQuads);
+    const int k = k0 + kr;
+    const float* row = k < op.depth() ? op.a_row(i, k) : nullptr;
+    const bool ok = row != nullptr && m0 + q < op.a_width();
+    cp_async16(stage + kr * kGemmLd + q, ok ? row + m0 + q : fallback, ok);
+  }
+  float* b = stage + kGemmK * kGemmLd;
+  for (int c = threadIdx.x; c < kGemmN * (kGemmK / 4); c += kThreads) {
+    const int n = c / (kGemmK / 4), k = k0 + 4 * (c % (kGemmK / 4));
+    const bool ok = k < op.b_length();
+    cp_async16(b + ((k - k0) / 4 * kGemmN + n) * 4,
+               ok ? op.b_row(i, n0 + n) + k : fallback, ok);
+  }
+}
+
+// Block (n tile, m tile, image i): the 128 x 128 tile of out[i] at rows
+// m0 = 128 y, columns n0 = 128 x, by wgmma.  Warpgroup q holds rows
+// 64 q.. of the tile, warp 4q + v rows 64 q + 16 v..; A fragments are
+// split in registers (two buffers, as in the forward), B is split once a
+// stage into big and small planes.  The tensor cores truncate where they
+// add into a float32 sum, and over K = 1264 that bias reaches 1e-5 of
+// d_rn: each stage's products start a fresh sum that joins the running
+// total in rounded float32.
+template <class Product>
+__global__ void __launch_bounds__(kThreads, 1)
+scores_drn_gemm(const Product op) {
+  extern __shared__ float4 smem4[];
+  float* const sm = reinterpret_cast<float*>(smem4);
+  float* const b_small = sm + kGemmStages * kGemmStage;
+  const int i = blockIdx.z, m0 = blockIdx.y * kGemmM,
+            n0 = blockIdx.x * kGemmN;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = 64 * (warp >> 2) + 16 * (warp & 3);
+  constexpr uint32_t kLead = kGemmN * 16, kStride = 128;
+  float acc[16][4], total[16][4];
 #pragma unroll
-  for (int m = 0; m < kWordsPerWarp; ++m)
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
-    for (int i = 0; i < kRegionsPerLane; ++i)
-      plane[(warp * kWordsPerWarp + m) * kMaxRegions + lane + 32 * i] =
-          v[i][m];
+    for (int x = 0; x < 4; ++x) acc[j][x] = total[j][x] = 0.f;
+  const int nk = (op.depth() + kGemmK - 1) / kGemmK;
+  for (int s = 0; s < kGemmStages - 1; ++s) {
+    if (s < nk) load_gemm_stage(sm + s * kGemmStage, op, i, m0, n0, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kGemmStages - 2>();
+    __syncthreads();
+    const float* a = sm + (kt % kGemmStages) * kGemmStage;
+    float* b_big = sm + (kt % kGemmStages) * kGemmStage + kGemmK * kGemmLd;
+    split_plane(b_big, b_small, kGemmK * kGemmN);
+    __syncthreads();
+    const int next = kt + kGemmStages - 1;
+    if (next < nk)
+      load_gemm_stage(sm + (next % kGemmStages) * kGemmStage, op, i, m0, n0,
+                      next);
+    cp_async_commit();
+    uint32_t ab[2][4], as[2][4];
+#pragma unroll
+    for (int kk = 0; kk < kGemmK; kk += 8) {
+      const int buf = (kk / 8) & 1;
+      if (kk >= 16) {
+        wgmma_wait<1>();
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          fence_operand(ab[buf][x]);
+          fence_operand(as[buf][x]);
+        }
+      }
+      frag_a_krow(a, kGemmLd, wm, kk, ab[buf], as[buf]);
+      const int off = (kk / 4) * kGemmN * 4;
+      const uint64_t big = smem_desc(b_big + off, kLead, kStride);
+      const uint64_t small = smem_desc(b_small + off, kLead, kStride);
+      wgmma_fence();
+      wgmma_m64n128k8(acc, as[buf], big);
+      wgmma_m64n128k8(acc, ab[buf], small);
+      wgmma_m64n128k8(acc, ab[buf], big);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        fence_operand(ab[b][x]);
+        fence_operand(as[b][x]);
+      }
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        fence_operand(acc[j][x]);
+        total[j][x] += acc[j][x];
+        acc[j][x] = 0.f;
+      }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int m = m0 + wm + (lane >> 2);
+    const int n = n0 + 8 * j + 2 * (lane & 3);
+    op.store(i, m, n, total[j][0], total[j][1]);
+    op.store(i, m + 8, n, total[j][2], total[j][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// D: scores_dwn (float32 FMA on the CUDA cores).
+// ---------------------------------------------------------------------------
+
+using Tile = float[kRegionsPerLane][kWordsPerWarp];
+
+// Shared memory of kernel D, in floats; every array starts 16-byte
+// aligned.
+struct Smem {
+  float* alpha;   // [kMaxWords][kRS]: softmax weights
+  float* tile;    // [32][kWChunk] rn tile
+  float* mask;    // [kMaxWords], and below, one value per word
+  float* num;     // ctx . wn
+  float* csq;     // |ctx|^2
+  float* ca;      // d_ctx = ca wn - cb ctx
+  float* cb;
+  float* sim;     // [kMaxWords][kRS], S then E = alpha ca + d_sim
+};
+
+__device__ Smem carve(float* base) {
+  Smem s;
+  s.alpha = base;
+  s.tile = s.alpha + kMaxWords * kRS;
+  s.mask = s.tile + 32 * kRS;
+  s.num = s.mask + kMaxWords;
+  s.csq = s.num + kMaxWords;
+  s.ca = s.csq + kMaxWords;
+  s.cb = s.ca + kMaxWords;
+  s.sim = s.mask + kSmall;
+  return s;
 }
 
 __device__ void load_tile(Tile& v, const float* plane) {
@@ -340,89 +988,11 @@ __device__ void load_mask(const Smem& s, const float* mask, const Shape& sh,
     s.mask[w] = w < num_words ? mask[(size_t)c0 * sh.words + w] : 0.f;
 }
 
-// The forward of one (image, caption group): alpha, s.num, s.csq, and
-// G alpha in `p`; all of them and S into `record` unless it is null.
-// Ends synchronized.
-__device__ void forward_cell(const Smem& s, const float* rn_i,
-                             const float* wn_g, const float* gram_i,
-                             const float* mask, const Shape& sh, int c0,
-                             int num_words, float gamma1, float* record,
-                             Tile& alpha, Tile& p) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  load_mask(s, mask, sh, c0, num_words);
-  similarity(s, rn_i, wn_g, sh, num_words, alpha);
-  if (record) save_tile(alpha, record + kPlane);
-  attention_weights(s, alpha, sh, num_words, gamma1);
-  gram_times_alpha(s, gram_i, sh, p);
-  if (record) {
-    save_tile(alpha, record);
-    save_tile(p, record + 2 * kPlane);
-  }
-  // |ctx_w|^2 = alpha_w^T G alpha_w.
-#pragma unroll
-  for (int m = 0; m < kWordsPerWarp; ++m) {
-    float c = 0.f;
-#pragma unroll
-    for (int i = 0; i < kRegionsPerLane; ++i) c += alpha[i][m] * p[i][m];
-    c = warp_sum(c);
-    if (lane == 0) s.csq[warp * kWordsPerWarp + m] = c;
-  }
-  __syncthreads();
-  if (record) {
-    for (int w = threadIdx.x; w < kMaxWords; w += kThreads) {
-      record[3 * kPlane + w] = s.num[w];
-      record[3 * kPlane + kMaxWords + w] = s.csq[w];
-    }
-  }
-}
-
-__device__ __forceinline__ float row_logit(const Smem& s, int w,
-                                           float gamma2) {
-  const float inv = rsqrtf(fmaxf(s.csq[w], 1e-12f));
-  return s.num[w] * inv * gamma2 + s.mask[w] * kNegInf;
-}
-
-// logsumexp over the `words` words of the caption starting at word w0.
-__device__ float caption_lse(const Smem& s, int w0, int words,
-                             float gamma2) {
-  float m = -INFINITY;
-  for (int w = 0; w < words; ++w) m = fmaxf(m, row_logit(s, w0 + w, gamma2));
-  float z = 0.f;
-  for (int w = 0; w < words; ++w)
-    z += expf(row_logit(s, w0 + w, gamma2) - m);
-  return m + logf(z);
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-scores_fwd(const float* __restrict__ rn, const float* __restrict__ wn,
-           const float* __restrict__ mask, const float* __restrict__ gram,
-           float* __restrict__ out, float* __restrict__ saved, Shape sh,
-           int group, float gamma1, float gamma2) {
-  extern __shared__ float4 smem4[];
-  const Smem s = carve(reinterpret_cast<float*>(smem4));
-  const int i = blockIdx.y;
-  const int c0 = blockIdx.x * group;
-  const int ncap = min(group, sh.num_caps - c0);
-  float* record = saved ? saved + ((size_t)i * gridDim.x + blockIdx.x) *
-                                      kRecord
-                        : nullptr;
-  Tile alpha, p;
-  forward_cell(s, rn + (size_t)i * sh.regions * sh.dim,
-               wn + (size_t)c0 * sh.words * sh.dim,
-               gram + (size_t)i * sh.regions * sh.regions, mask, sh, c0,
-               ncap * sh.words, gamma1, record, alpha, p);
-  const int t = threadIdx.x;
-  if (t < ncap)
-    out[(size_t)i * sh.num_caps + c0 + t] =
-        caption_lse(s, t * sh.words, sh.words, gamma2) / gamma2;
-}
-
 // The cotangent chain of one (image i, caption group at c0) from what
 // the forward saved in `record` (the chain of _bwd_cell_chain): alpha
 // into s.alpha, the mask, d_ctx = ca wn - cb ctx as s.ca and s.cb, and
 // E = alpha ca + d_sim [word][region] in s.sim, where d_sim is the softmax
-// VJP of d_alpha = rn d_ctx^T = ca S - cb G alpha.  Both gradients start
-// from E: d_rn = E wn - alpha diag(cb) alpha^T rn and d_wn = E^T rn.
+// VJP of d_alpha = rn d_ctx^T = ca S - cb G alpha.
 // Starts with a barrier; on return each thread has written only its own
 // tile of E, so a reader of other lanes' E synchronizes first.
 __device__ void cotangent_chain(const Smem& s, const float* record,
@@ -451,21 +1021,11 @@ __device__ void cotangent_chain(const Smem& s, const float* record,
   }
   __syncthreads();
 
-  // logsumexp VJP, then the cosine VJP: d_ctx = ca wn - cb ctx.
   if (t < kMaxWords) {
     float ca = 0.f, cb = 0.f;
-    if (t < num_words) {
-      const int cap = t / sh.words;
-      const float lse = caption_lse(s, cap * sh.words, sh.words, gamma2);
-      const float beta = expf(row_logit(s, t, gamma2) - lse);
-      const float d_rowsim =
-          g[(size_t)(c0 + cap) * sh.num_images + i] * beta;
-      const float inv = rsqrtf(fmaxf(s.csq[t], 1e-12f));
-      const float rowsim = s.num[t] * inv;
-      const float guard = s.csq[t] >= 1e-12f ? 1.f : 0.f;
-      ca = d_rowsim * inv;
-      cb = guard * d_rowsim * rowsim * inv * inv;
-    }
+    if (t < num_words)
+      word_coefficients(s.num, s.csq, s.mask, g, sh, i, c0, t, gamma2, ca,
+                        cb);
     s.ca[t] = ca;
     s.cb[t] = cb;
   }
@@ -491,132 +1051,6 @@ __device__ void cotangent_chain(const Smem& s, const float* record,
     for (int i2 = 0; i2 < kRegionsPerLane; ++i2)
       row[32 * i2] = alpha[i2][m] * ca +
                      gamma1 * (tp[i2][m] - alpha[i2][m] * colsum);
-  }
-
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-scores_drn(const float* __restrict__ rn, const float* __restrict__ wn,
-           const float* __restrict__ mask, const float* __restrict__ g,
-           const float* __restrict__ saved, float* __restrict__ hbuf,
-           float* __restrict__ partial, Shape sh, int group, int parts,
-           float gamma1, float gamma2) {
-  extern __shared__ float4 smem4[];
-  const Smem s = carve(reinterpret_cast<float*>(smem4));
-  const int i = blockIdx.y, p_idx = blockIdx.x;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int num_groups = (sh.num_caps + group - 1) / group;
-  const float* rn_i = rn + (size_t)i * sh.regions * sh.dim;
-  float* out_i = partial + ((size_t)p_idx * sh.num_images + i) *
-                               sh.regions * sh.dim;
-  float* hbuf_i = hbuf + ((size_t)p_idx * sh.num_images + i) * kMaxRegions *
-                             kMaxRegions;
-
-  for (int grp = p_idx; grp < num_groups; grp += parts) {
-    const bool first = grp == p_idx;
-    const int c0 = grp * group;
-    const int ncap = min(group, sh.num_caps - c0);
-    const int num_words = ncap * sh.words;
-    const float* wn_g = wn + (size_t)c0 * sh.words * sh.dim;
-
-    cotangent_chain(s, saved + ((size_t)i * num_groups + grp) * kRecord,
-                    mask, g, sh, i, c0, num_words, gamma1, gamma2);
-
-    // H += alpha diag(cb) alpha^T over this group's words, in the block's
-    // [kMaxRegions, kMaxRegions] scratch: 4 passes of 8 x 8 tiles.
-#pragma unroll 1
-    for (int sp = 0; sp < 4; ++sp) {
-      const int col0 = 32 * warp + 8 * sp;
-      Tile8 h;
-      load_tile8(h, hbuf_i, kMaxRegions, kMaxRegions, kMaxRegions, col0,
-                 first);
-#pragma unroll 2
-      for (int w = 0; w < num_words; ++w) {
-        const float cb = s.cb[w];
-        const float* ar = s.alpha + w * kRS;
-        float fa[kRegionsPerLane], ab[8];
-#pragma unroll
-        for (int i2 = 0; i2 < kRegionsPerLane; ++i2)
-          fa[i2] = ar[lane + 32 * i2] * cb;
-#pragma unroll
-        for (int n = 0; n < 8; ++n) ab[n] = ar[col0 + n];
-#pragma unroll
-        for (int i2 = 0; i2 < kRegionsPerLane; ++i2)
-#pragma unroll
-          for (int n = 0; n < 8; ++n) h[i2][n] += fa[i2] * ab[n];
-      }
-      store_tile8(h, hbuf_i, kMaxRegions, kMaxRegions, kMaxRegions, col0);
-    }
-
-    // d_rn += E wn over D, in chunks of kDChunk: 8 regions x 8 features
-    // per thread.
-    for (int d0 = 0; d0 < sh.dim; d0 += kDChunk) {
-      __syncthreads();
-      for (int idx = t; idx < kMaxWords * (kDChunk / 4); idx += kThreads) {
-        const int w = idx / (kDChunk / 4), d = d0 + 4 * (idx % (kDChunk / 4));
-        st4(s.tile + w * kDChunk + (d - d0),
-            (w < num_words && d + 4 <= sh.dim)
-                ? ld4(wn_g + (size_t)w * sh.dim + d)
-                : make_float4(0.f, 0.f, 0.f, 0.f));
-      }
-      __syncthreads();
-      const int col0 = d0 + 8 * warp;
-      Tile8 o;
-      load_tile8(o, out_i, sh.dim, sh.regions, sh.dim, col0, first);
-#pragma unroll 2
-      for (int w = 0; w < num_words; ++w) {
-        const float* er = s.sim + w * kRS + lane;
-        const float4 x0 = ld4(s.tile + w * kDChunk + 8 * warp);
-        const float4 x1 = ld4(s.tile + w * kDChunk + 8 * warp + 4);
-        const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-        for (int i2 = 0; i2 < kRegionsPerLane; ++i2) {
-          const float e = er[32 * i2];
-#pragma unroll
-          for (int n = 0; n < 8; ++n) o[i2][n] += e * x[n];
-        }
-      }
-      store_tile8(o, out_i, sh.dim, sh.regions, sh.dim, col0);
-    }
-  }
-
-  // d_rn -= H rn_i, once for all of the block's caption groups: H is
-  // symmetric, so 32 of its rows stand for 32 of its columns.
-  for (int d0 = 0; d0 < sh.dim; d0 += kDChunk) {
-    const int col0 = d0 + 8 * warp;
-    Tile8 o;
-    __syncthreads();
-    load_tile8(o, out_i, sh.dim, sh.regions, sh.dim, col0, false);
-    for (int r0 = 0; r0 < sh.regions; r0 += 32) {
-      __syncthreads();
-      for (int idx = t; idx < 32 * kMaxRegions; idx += kThreads) {
-        const int rr = idx / kMaxRegions, c = idx % kMaxRegions;
-        s.tile[rr * kRS + c] = hbuf_i[(size_t)(r0 + rr) * kMaxRegions + c];
-      }
-      for (int idx = t; idx < 32 * (kDChunk / 4); idx += kThreads) {
-        const int rr = idx / (kDChunk / 4), d = d0 + 4 * (idx % (kDChunk / 4));
-        st4(s.wtile + rr * kDChunk + (d - d0),
-            (r0 + rr < sh.regions && d + 4 <= sh.dim)
-                ? ld4(rn_i + (size_t)(r0 + rr) * sh.dim + d)
-                : make_float4(0.f, 0.f, 0.f, 0.f));
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int rr = 0; rr < 32; ++rr) {
-        float hv[kRegionsPerLane];
-#pragma unroll
-        for (int i2 = 0; i2 < kRegionsPerLane; ++i2)
-          hv[i2] = s.tile[rr * kRS + lane + 32 * i2];
-        const float4 x0 = ld4(s.wtile + rr * kDChunk + 8 * warp);
-        const float4 x1 = ld4(s.wtile + rr * kDChunk + 8 * warp + 4);
-        const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-        for (int i2 = 0; i2 < kRegionsPerLane; ++i2)
-#pragma unroll
-          for (int n = 0; n < 8; ++n) o[i2][n] -= hv[i2] * x[n];
-      }
-    }
-    store_tile8(o, out_i, sh.dim, sh.regions, sh.dim, col0);
   }
 }
 
@@ -722,6 +1156,17 @@ int check_shape(const Shape& sh) {
   return cudaSuccess;
 }
 
+template <class Product>
+int launch_gemm(const Product& op, dim3 grid, cudaStream_t st) {
+  const int smem = kGemmSmemFloats * sizeof(float);
+  int e = cudaFuncSetAttribute(scores_drn_gemm<Product>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (e != cudaSuccess) return e;
+  scores_drn_gemm<Product><<<grid, kThreads, smem, st>>>(op);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -734,69 +1179,84 @@ int xmc_word_scores_group_size(int words) {
 // Floats the forward saves per (image, caption group) for the gradient.
 int xmc_word_scores_record_floats() { return kRecord; }
 
+// Word rows of the region gradient's operands: caption groups x 72.
+int xmc_word_scores_word_rows(int num_caps, int words) {
+  const int group = xmc_word_scores_group_size(words);
+  return group ? (num_caps + group - 1) / group * kMaxWords : 0;
+}
+
 // rn: [num_images, regions, dim] unit rows; wn: [num_caps, words, dim]
 // unit rows; mask: [num_caps, words], 1.0 at padding; gram: [num_images,
-// regions, regions] = rn rn^T; out: [num_images, num_caps]; saved: null,
-// or [num_images, caption groups, record floats] for scores_drn.  All f32,
-// contiguous.
+// gram_ld, gram_ld], rn rn^T in its top-left corner and zeros around it
+// (regions <= gram_ld <= 256, gram_ld % 4 == 0); out: [num_images,
+// num_caps]; saved: null, or [num_images, caption groups, record floats]
+// for the gradients.  All f32, contiguous.
 int xmc_word_scores_fwd(const void* rn, const void* wn, const void* mask,
                         const void* gram, void* out, void* saved,
                         int num_images, int num_caps, int regions, int words,
-                        int dim, float gamma1, float gamma2, void* stream) {
+                        int dim, int gram_ld, float gamma1, float gamma2,
+                        void* stream) {
   const Shape sh{num_images, num_caps, regions, words, dim};
   int e = check_shape(sh);
   if (e != cudaSuccess) return e;
+  if (gram_ld < regions || gram_ld > kMaxRegions || gram_ld % 4)
+    return cudaErrorInvalidValue;
   const int group = kMaxWords / words;
-  const size_t smem = (size_t)kFwdSmemFloats * sizeof(float);
+  const int smem = kFwdSmemFloats * sizeof(float);
   e = cudaFuncSetAttribute(scores_fwd,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((num_caps + group - 1) / group, num_images);
+  const int num_groups = (num_caps + group - 1) / group;
+  dim3 grid((num_groups + kFwdGroups - 1) / kFwdGroups, num_images);
   scores_fwd<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rn), static_cast<const float*>(wn),
       static_cast<const float*>(mask), static_cast<const float*>(gram),
       static_cast<float*>(out), static_cast<float*>(saved), sh, group,
-      gamma1, gamma2);
+      gram_ld, gamma1, gamma2);
   return cudaGetLastError();
 }
 
 // g: [num_caps, num_images] cotangent of the [caption, image] scores;
-// saved: what xmc_word_scores_fwd saved for the same inputs; hbuf: [parts,
-// num_images, 256, 256] scratch; partial: [parts, num_images, regions,
-// dim] scratch (may be d_rn itself when parts == 1); d_rn: [num_images,
-// regions, dim].
+// saved: what xmc_word_scores_fwd saved for the same inputs; ops:
+// [num_images, 256, word rows + 256] and fbuf: [num_images, 256, word
+// rows] scratch (word rows from xmc_word_scores_word_rows); d_rn:
+// [num_images, regions, dim].  Three launches: the chain, H, d_rn.
 int xmc_word_scores_drn(const void* rn, const void* wn, const void* mask,
-                        const void* g, const void* saved, void* hbuf,
-                        void* partial, void* d_rn, int num_images,
-                        int num_caps, int regions, int words, int dim,
-                        int parts, float gamma1, float gamma2,
-                        void* stream) {
+                        const void* g, const void* saved, void* ops,
+                        void* fbuf, void* d_rn, int num_images, int num_caps,
+                        int regions, int words, int dim, float gamma1,
+                        float gamma2, void* stream) {
   const Shape sh{num_images, num_caps, regions, words, dim};
   int e = check_shape(sh);
   if (e != cudaSuccess) return e;
   const int group = kMaxWords / words;
   const int num_groups = (num_caps + group - 1) / group;
-  if (parts < 1 || parts > num_groups) return cudaErrorInvalidValue;
-  if (parts == 1 && partial != d_rn) return cudaErrorInvalidValue;
+  const int kp = num_groups * kMaxWords;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)kBwdSmemFloats * sizeof(float);
-  e = cudaFuncSetAttribute(scores_drn,
+  const float* rec = static_cast<const float*>(saved);
+  float* ops_f = static_cast<float*>(ops);
+  float* fbuf_f = static_cast<float*>(fbuf);
+  const int chain_smem = kMaxRegions * kChainLd * sizeof(float);
+  e = cudaFuncSetAttribute(scores_drn_chain,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+                           chain_smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(parts, num_images);
-  scores_drn<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(rn), static_cast<const float*>(wn),
-      static_cast<const float*>(mask), static_cast<const float*>(g),
-      static_cast<const float*>(saved), static_cast<float*>(hbuf),
-      static_cast<float*>(partial), sh, group, parts, gamma1, gamma2);
+  scores_drn_chain<<<dim3(num_groups, num_images), kThreads, chain_smem,
+                     st>>>(rec, static_cast<const float*>(mask),
+                           static_cast<const float*>(g), ops_f, fbuf_f, sh,
+                           group, kp, gamma1, gamma2);
   e = cudaGetLastError();
-  if (e != cudaSuccess || parts == 1) return e;
-  const size_t n = (size_t)num_images * regions * dim;
-  sum_parts<<<1024, 256, 0, st>>>(static_cast<const float*>(partial),
-                                  static_cast<float*>(d_rn), n, parts);
-  return cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const HProduct h{fbuf_f, rec, ops_f, kp, num_groups};
+  e = launch_gemm(h, dim3(kMaxRegions / kGemmN, kMaxRegions / kGemmM,
+                          num_images), st);
+  if (e != cudaSuccess) return e;
+  const DrnProduct d{ops_f, static_cast<const float*>(wn),
+                     static_cast<const float*>(rn),
+                     static_cast<float*>(d_rn), sh, group, kp};
+  return launch_gemm(d, dim3((regions + kGemmN - 1) / kGemmN,
+                             (dim + kGemmM - 1) / kGemmM, num_images),
+                     st);
 }
 
 // Same inputs as xmc_word_scores_drn but for the word gradient: partial:
@@ -815,7 +1275,7 @@ int xmc_word_scores_dwn(const void* rn, const void* mask, const void* g,
   if (parts == 1 && partial != d_wn) return cudaErrorInvalidValue;
   const int group = kMaxWords / words;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)kBwdSmemFloats * sizeof(float);
+  const size_t smem = (size_t)kDwnSmemFloats * sizeof(float);
   e = cudaFuncSetAttribute(scores_dwn,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);

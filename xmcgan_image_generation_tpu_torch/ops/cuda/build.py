@@ -42,14 +42,15 @@ _F = ctypes.c_float
 SIGNATURES = {
     "xmc_ntxent_f32": (_P, _P, _P, _P, _I, _I, _F, _P),
     "xmc_ntxent_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
-    "xmc_word_scores_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                            _F, _P),
+    "xmc_word_scores_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _F, _F, _P),
     "xmc_word_scores_drn": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _F, _F, _P),
+                            _I, _F, _F, _P),
     "xmc_word_scores_dwn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _F, _P),
     "xmc_word_scores_group_size": (_I,),
     "xmc_word_scores_record_floats": (),
+    "xmc_word_scores_word_rows": (_I, _I),
 }
 
 

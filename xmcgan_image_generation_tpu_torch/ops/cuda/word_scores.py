@@ -10,7 +10,11 @@ gradient with respect to the words, summed over images (kernel
 ``scores_dwn``, the port of ``_bwd_dwn_kernel``).  The forward kernel
 takes the regions' Gram matrix ``rn rn^T`` (one batched matmul inside
 `scores`) and, when a gradient will follow, saves what both gradients
-start from into a `new_saved` buffer, which `drn` and `dwn` read.  For
+start from into a `new_saved` buffer, which `drn` and `dwn` read.  The
+forward and the region gradient run their products on the tensor cores
+in the float32-accurate 3xTF32 split; `drn` is three launches (the
+cotangent chain, ``H``, then ``d_rn`` as one product per image) into
+scratch it allocates.  For
 CPU tensors each runs its plain PyTorch version (`scores_plain`,
 `drn_plain`, `dwn_plain`).  `word_scores` is the public ``[caption,
 image]`` op over raw features; on the card its backward gives the
@@ -27,6 +31,7 @@ from xmcgan_image_generation_tpu_torch.ops.contrastive import l2_normalize
 from xmcgan_image_generation_tpu_torch.ops.cuda import build
 
 NEG_INF = -1e9
+MAX_REGIONS = 256   # the kernels' limit on regions per image
 
 
 def scores_plain(rn: torch.Tensor, wn: torch.Tensor, mask: torch.Tensor,
@@ -92,7 +97,7 @@ def _kernel_shape(rn, wn):
     raise ValueError(f"word_scores has no kernel for {rn.device}")
   lib = build.library()
   group = lib.xmc_word_scores_group_size(wn.shape[1])
-  if rn.shape[1] > 256 or group < 1 or rn.shape[2] % 4:
+  if rn.shape[1] > MAX_REGIONS or group < 1 or rn.shape[2] % 4:
     raise ValueError(f"word_scores kernels take at most 256 regions, 72 "
                      f"words per caption and a feature size divisible by 4, "
                      f"got {tuple(rn.shape)} and {tuple(wn.shape)}")
@@ -139,13 +144,17 @@ def scores(rn: torch.Tensor, wn: torch.Tensor, mask: torch.Tensor,
     _check_saved(rn, wn, saved)
   num_images, regions, dim = rn.shape
   num_caps, words, _ = wn.shape
-  rn_gram = torch.bmm(rn, rn.transpose(1, 2))   # TF32 if the caller allows
+  # The kernel reads the Gram matrix in rows of 16 bytes: zero regions pad
+  # it to a multiple of 4.
+  gram_ld = -(-regions // 4) * 4
+  rn_g = rn if gram_ld == regions else F.pad(rn, (0, 0, 0, gram_ld - regions))
+  rn_gram = torch.bmm(rn_g, rn_g.transpose(1, 2))  # TF32 if the caller allows
   out = torch.empty((num_images, num_caps), dtype=torch.float32,
                     device=rn.device)
   status = lib.xmc_word_scores_fwd(
       rn.data_ptr(), wn.data_ptr(), mask.data_ptr(), rn_gram.data_ptr(),
       out.data_ptr(), saved.data_ptr() if saved is not None else None,
-      num_images, num_caps, regions, words, dim, float(gamma1),
+      num_images, num_caps, regions, words, dim, gram_ld, float(gamma1),
       float(gamma2), torch.cuda.current_stream(rn.device).cuda_stream)
   build.check(status, "word_scores forward kernel")
   scores.launches += 1
@@ -167,29 +176,23 @@ def drn(rn: torch.Tensor, wn: torch.Tensor, mask: torch.Tensor,
   _check(rn, wn, mask, g)
   if rn.device.type == "cpu":
     return drn_plain(rn, wn, mask, g, gamma1, gamma2)
-  lib, group = _kernel_shape(rn, wn)
+  lib, _ = _kernel_shape(rn, wn)
   _check_saved(rn, wn, saved)
   num_images, regions, dim = rn.shape
   num_caps, words, _ = wn.shape
-  num_groups = -(-num_caps // group)
-  # One wave of (image, part) blocks (the kernel's shared memory allows
-  # one block per SM); each part sums its own caption groups, and a second
-  # launch adds the parts in a fixed order.
-  sms = torch.cuda.get_device_properties(rn.device).multi_processor_count
-  parts = min(num_groups, max(1, sms // num_images))
-  d_rn = torch.empty_like(rn)
-  partial = (d_rn if parts == 1 else
-             torch.empty((parts,) + tuple(rn.shape), dtype=torch.float32,
-                         device=rn.device))
-  # Each block's H = alpha diag(b) alpha^T, at the kernel's 256 x 256.
-  hbuf = torch.empty((parts, num_images, 256, 256), dtype=torch.float32,
+  # Per image, the operands [E | -H] ([256, word rows + 256]) and F = cb
+  # alpha ([256, word rows]) of the kernel's two products.
+  rows = lib.xmc_word_scores_word_rows(num_caps, words)
+  ops = torch.empty((num_images, MAX_REGIONS, rows + MAX_REGIONS),
+                    dtype=torch.float32, device=rn.device)
+  fbuf = torch.empty((num_images, MAX_REGIONS, rows), dtype=torch.float32,
                      device=rn.device)
+  d_rn = torch.empty_like(rn)
   status = lib.xmc_word_scores_drn(
       rn.data_ptr(), wn.data_ptr(), mask.data_ptr(), g.data_ptr(),
-      saved.data_ptr(), hbuf.data_ptr(), partial.data_ptr(),
-      d_rn.data_ptr(), num_images, num_caps, regions, words, dim, parts,
-      float(gamma1), float(gamma2),
-      torch.cuda.current_stream(rn.device).cuda_stream)
+      saved.data_ptr(), ops.data_ptr(), fbuf.data_ptr(), d_rn.data_ptr(),
+      num_images, num_caps, regions, words, dim, float(gamma1),
+      float(gamma2), torch.cuda.current_stream(rn.device).cuda_stream)
   build.check(status, "word_scores region-gradient kernel")
   drn.launches += 1
   return d_rn
