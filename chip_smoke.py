@@ -9,10 +9,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    ``-Xptxas -v`` lines;
 3. holds each kernel against its plain PyTorch version at the flagship
    shapes, with float32 and with bfloat16 inputs (TF32 off), on random
-   regions and on peaked ones (built from their caption's words), checks
-   that two region-gradient calls agree bit for bit, and times each
-   kernel and its plain version with CUDA events, beside the same dense
-   products through ``torch.bmm`` (a yardstick the port never calls);
+   regions and on peaked ones (built from their caption's words), the
+   NT-Xent statistics and their gradient included, checks that two calls
+   of each word-score gradient agree bit for bit, and times each kernel
+   and its plain version with CUDA events, beside the same dense products
+   through ``torch.bmm`` (a yardstick the port never calls); times the
+   NT-Xent kernels and an empty kernel (the launch floor) also as device
+   time by ``torch.profiler``;
    drives ``word_scores`` differentiated with respect to regions and
    words (kernels B, C and D) and checks that each launched; then takes
    one small float32 step (test config) with the kernels and with the
@@ -20,7 +23,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 4. trains the flagship configuration (128 px, 2 x 56 super-batch,
    bfloat16, every contrastive head and the ResNet-50 tower) for a few
    outer steps through ``train.train``, checks the losses are finite and
-   that kernels A, B and C launched during the steps, and prints the step
+   that kernels A (forward and backward), B and C launched during the
+   steps, and prints the step
    time, images/s, peak device memory and the last step's checkpoint
    save;
 5. trains the test configuration 2 steps, then resumes a fresh run from
@@ -93,6 +97,28 @@ def time_ms(fn, iters: int = KERNEL_ITERS) -> float:
   return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, names, iters: int = KERNEL_ITERS):
+  """Mean device time per call of ``fn()`` by ``torch.profiler``: the
+  kernels whose names hold one of ``names``, after warm-up; None when the
+  profiler saw no device time."""
+  import torch
+
+  for _ in range(3):
+    fn()
+  torch.cuda.synchronize()
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=activities) as prof:
+    for _ in range(iters):
+      fn()
+    torch.cuda.synchronize()
+  total_us = sum(
+      evt.self_device_time_total for evt in prof.key_averages()
+      if evt.device_type == torch.autograd.DeviceType.CUDA
+      and any(name in evt.key for name in names))
+  return total_us / iters / 1e3 if total_us > 0 else None
+
+
 def set_bound(record, nbytes, ops, rate):
   t_bytes = nbytes / HBM_BYTES_PER_S
   t_ops = ops / PEAK_OPS_PER_S[rate]
@@ -107,9 +133,8 @@ def word_scores_bounds(records, n, regions, words, dim, saved_bytes):
   and G alpha; reads rn, wn and the mask; writes the scores and the
   record.  C forms E wn, H = alpha diag(b) alpha^T and H rn; reads rn, wn,
   the mask, g and the record; writes d_rn.  D forms E^T rn; reads rn, the
-  mask, g and the record; writes d_wn.  B and C take the 3xTF32 route, D
-  float32 FMA.  Returns each kernel's bytes-bound and float32-FMA-bound
-  ms."""
+  mask, g and the record; writes d_wn.  All three take the 3xTF32 route.
+  Returns each kernel's bytes-bound and float32-FMA-bound ms."""
   rn, wn = 4 * n * regions * dim, 4 * n * words * dim
   mask, scores = 4 * n * words, 4 * n * n       # g is the size of scores
   sim = 2 * n * n * regions * words * dim       # one [R, L, D] product per pair
@@ -125,7 +150,7 @@ def word_scores_bounds(records, n, regions, words, dim, saved_bytes):
           "tf32x3"),
       "word_scores_dwn": set_bound(
           records["word_scores_dwn"], rn + mask + scores + saved_bytes + wn,
-          sim, "float32"),
+          sim, "tf32x3"),
   }
 
 
@@ -133,6 +158,7 @@ def check_kernels(torch, records):
   """Phase 3: each kernel against its plain version at flagship shapes."""
   from xmcgan_image_generation_tpu_torch.ops.attention import padding_mask
   from xmcgan_image_generation_tpu_torch.ops.contrastive import l2_normalize
+  from xmcgan_image_generation_tpu_torch.ops.cuda import build
   from xmcgan_image_generation_tpu_torch.ops.cuda import ntxent
   from xmcgan_image_generation_tpu_torch.ops.cuda import word_scores as ws
 
@@ -148,30 +174,83 @@ def check_kernels(torch, records):
     if err > tol:
       fail(f"{name} [{dtype}] disagrees with its plain version")
 
+  def check_identical(name, label, first, second):
+    identical = bool(torch.equal(first, second))
+    print(f"  {name} [{label}]: two calls bit-identical: {identical}",
+          flush=True)
+    if not identical:
+      fail(f"two {name} calls on the same inputs differ")
+
   errors = {"word_scores_fwd": 0.0, "word_scores_drn": 0.0,
             "word_scores_dwn": 0.0}
 
-  # A: NT-Xent on post-ReLU-like pooled features.  Both sides reduce in
-  # f32 from the same inputs; only the summation order differs.
+  # A: NT-Xent on post-ReLU-like pooled features, the statistics and their
+  # gradient from the forward's record.  Both sides reduce in f32 from the
+  # same inputs; only the summation order differs.  The cotangent of the
+  # accuracy and the entropy is ignored.
+  g_out = torch.tensor([1.7, 0.3, 0.2], device=dev)
   for dtype in (torch.float32, torch.bfloat16):
     a = torch.randn(batch, pool_dim, device=dev, generator=gen).abs()
     b = torch.randn(batch, pool_dim, device=dev, generator=gen)
     a, b = a.to(dtype), b.to(dtype)
-    got = ntxent.ntxent_stats(a, b, 0.1)
+    record = torch.empty(ntxent.record_floats(batch), device=dev)
+    got = ntxent.ntxent_stats(a, b, 0.1, record)
     want = ntxent.ntxent_plain(a, b, 0.1)
+    d_got = ntxent.ntxent_bwd(a, b, record, g_out, 0.1)
+    d_want = ntxent.ntxent_bwd_plain(a, b, g_out[0], 0.1)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     report("ntxent", str(dtype), err, 2e-4)
+    d_err = max(float((x.float() - y.float()).abs().max())
+                for x, y in zip(d_got, d_want))
+    scale = max(float(y.float().abs().max()) for y in d_want)
+    # f32: summation order only.  bf16: both gradients are rounded to
+    # bf16, so one bf16 ulp (2^-8 relative) may separate them.
+    report("ntxent_bwd", str(dtype), d_err,
+           (1e-4 if dtype == torch.float32 else 8e-3) * scale)
     if dtype == torch.float32:
       records["ntxent"]["max_abs_err"] = err
+      records["ntxent_bwd"]["max_abs_err"] = d_err
+  # Timed as the training step calls them (bf16): CUDA events around the
+  # wrappers (host time when the host is slower than the card), and device
+  # time by the profiler, beside an empty kernel timed both ways.
   a = torch.randn(batch, pool_dim, device=dev, generator=gen).bfloat16()
   b = torch.randn(batch, pool_dim, device=dev, generator=gen).bfloat16()
-  records["ntxent"]["ms"] = time_ms(lambda: ntxent.ntxent_stats(a, b))
-  records["ntxent"]["plain_ms"] = time_ms(lambda: ntxent.ntxent_plain(a, b))
-  # Reads a and b (bfloat16), writes f32[3]; normalizes both and forms
-  # S = a b^T.
-  set_bound(records["ntxent"], 2 * 2 * batch * pool_dim + 12,
+  record = torch.empty(ntxent.record_floats(batch), device=dev)
+  lib = build.library()
+
+  def empty():
+    build.check(lib.xmc_empty_kernel(torch.cuda.current_stream().cuda_stream),
+                "empty kernel")
+
+  def fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+  for name, kernel, fn, plain in (
+      ("ntxent", "ntxent_fwd", lambda: ntxent.ntxent_stats(a, b, 0.1, record),
+       lambda: ntxent.ntxent_plain(a, b, 0.1)),
+      ("ntxent_bwd", "ntxent_bwd",
+       lambda: ntxent.ntxent_bwd(a, b, record, g_out, 0.1),
+       lambda: ntxent.ntxent_bwd_plain(a, b, g_out[0], 0.1))):
+    records[name]["ms"] = time_ms(fn)
+    records[name]["plain_ms"] = time_ms(plain)
+    records[name]["device_ms"] = device_ms(fn, (kernel,))
+    print(f"  {name}: {records[name]['ms']:.4f} ms a call with events around "
+          f"the wrapper, {fmt(records[name]['device_ms'])} device time "
+          f"(torch.profiler); plain {records[name]['plain_ms']:.4f} ms",
+          flush=True)
+  print(f"  launch floor, an empty kernel through ctypes: {time_ms(empty):.4f} "
+        f"ms with events, {fmt(device_ms(empty, ('empty_kernel',)))} device "
+        f"time (torch.profiler)", flush=True)
+  # Forward: reads a and b (bfloat16), writes f32[3] and the record;
+  # normalizes both and forms S = a b^T.  Backward: reads a, b, the record
+  # and g, writes d_a and d_b (bfloat16); two [B, B] x [B, D] products.
+  record_bytes = 4 * ntxent.record_floats(batch)
+  set_bound(records["ntxent"], 2 * 2 * batch * pool_dim + 12 + record_bytes,
             2 * batch * batch * pool_dim + 6 * batch * pool_dim, "bfloat16")
+  set_bound(records["ntxent_bwd"],
+            4 * 2 * batch * pool_dim + record_bytes + 4,
+            4 * batch * batch * pool_dim + 8 * batch * pool_dim, "bfloat16")
 
   # B, C and D: word-region scores and their two gradients, on random
   # regions and on peaked ones: 3 x a real word of the image's own caption
@@ -231,18 +310,16 @@ def check_kernels(torch, records):
         report("word_scores_drn", label, err,
                1e-4 * float(d_want.abs().max()))
         errors["word_scores_drn"] = max(errors["word_scores_drn"], err)
-        identical = bool(torch.equal(d_got, d_again))
-        print(f"  word_scores_drn [{label}]: two calls bit-identical: "
-              f"{identical}", flush=True)
-        if not identical:
-          fail("two word_scores_drn calls on the same inputs differ")
+        check_identical("word_scores_drn", label, d_got, d_again)
         d_got = ws.dwn(rn, wn, mask, g, saved, g1, g2)
+        d_again = ws.dwn(rn, wn, mask, g, saved, g1, g2)
         d_want = ws.dwn_plain(rn, wn, mask, g, g1, g2)
         torch.cuda.synchronize()
         err = float((d_got - d_want).abs().max())
         report("word_scores_dwn", label, err,
                1e-4 * float(d_want.abs().max()))
         errors["word_scores_dwn"] = max(errors["word_scores_dwn"], err)
+        check_identical("word_scores_dwn", label, d_got, d_again)
 
       # D through autograd: both gradients asked at once (kernels B, C,
       # D) against plain autograd of the plain formulation; the peaked
@@ -403,8 +480,8 @@ def train_flagship(torch, records, card, workdir, config):
         f"{config.num_train_steps} steps", flush=True)
   # Training never differentiates the word features (BERT inputs), so
   # kernel D is not on this path: its launches come from phase 3.
-  counters = {"ntxent": ntxent.ntxent_stats, "word_scores_fwd": ws.scores,
-              "word_scores_drn": ws.drn}
+  counters = {"ntxent": ntxent.ntxent_stats, "ntxent_bwd": ntxent.ntxent_bwd,
+              "word_scores_fwd": ws.scores, "word_scores_drn": ws.drn}
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   for fn in counters.values():
@@ -643,7 +720,7 @@ def main() -> None:
         f"{result.seconds:.1f} s, one nvcc per source in parallel "
         f"({time.perf_counter() - start:.1f} s with loading)", flush=True)
   for line in result.log.splitlines():
-    if "ptxas" in line:
+    if "ptxas" in line or "spill" in line:
       print(f"  {line.strip()}")
 
   src = "xmcgan_image_generation_tpu_torch/csrc/"
@@ -652,6 +729,10 @@ def main() -> None:
       "ntxent": {"name": "ntxent", "route": "cuda",
                  "source": src + "ntxent.cu",
                  "replaces": pallas + "ntxent.py:51"},
+      # The TPU's backward was jnp that XLA fused (nt_xent_fused's _bwd).
+      "ntxent_bwd": {"name": "ntxent_bwd", "route": "cuda",
+                     "source": src + "ntxent.cu",
+                     "replaces": pallas + "ntxent.py:90"},
       "word_scores_fwd": {"name": "word_scores_fwd", "route": "cuda",
                           "source": src + "word_scores.cu",
                           "replaces": pallas + "word_scores.py:44"},

@@ -1,13 +1,16 @@
 """The port's kernels (ops/cuda) against the JAX package's Pallas kernels.
 
-CPU tests: the plain PyTorch version of each kernel (NT-Xent, word-score
-forward, word-score region and word gradients) against the Pallas kernel
-run in interpret mode, at a small size with a ragged mask, for float32
-and for bfloat16 inputs.  Inputs come from a numpy seed.
+CPU tests: the plain PyTorch version of each kernel (NT-Xent and its
+gradient, word-score forward, word-score region and word gradients)
+against the Pallas kernel run in interpret mode, at a small size with a
+ragged mask, for float32 and for bfloat16 inputs, and the NT-Xent
+backward kernel's formula (from the forward's record) modelled step by
+step.  Inputs come from a numpy seed.
 
 GPU tests (marker ``gpu``): each CUDA kernel against its plain version at
 the flagship shapes, on random regions and on peaked ones (built from
-their caption's words), and two region-gradient calls bit for bit.  They need a card and skip without one; on the card
+their caption's words), and two calls of each word-score gradient bit for
+bit.  They need a card and skip without one; on the card
 run ``python -m pytest -m gpu --noconftest tests/test_torch_kernels.py``
 (the JAX package is not needed there).
 """
@@ -115,6 +118,65 @@ def test_ntxent_gradient_matches_pallas(reference, dtype):
     np.testing.assert_allclose(
         got.float().numpy(), want, rtol=GRAD_RTOL[dtype],
         atol=GRAD_RTOL[dtype] * np.abs(want).max())
+
+
+def _ntxent_record(a, b, temperature):
+  """What kernel ``ntxent_fwd`` records, in plain PyTorch: the logits, the
+  inverse row norms of a and b, and the log-sum-exp of every row and every
+  column of the logits."""
+  a, b = a.float(), b.float()
+  inv_a = torch.rsqrt(torch.clamp_min((a * a).sum(-1), 1e-12))
+  inv_b = torch.rsqrt(torch.clamp_min((b * b).sum(-1), 1e-12))
+  logits = (a @ b.t()) * inv_a[:, None] * inv_b[None, :] / temperature
+  return (logits, inv_a, inv_b, torch.logsumexp(logits, 1),
+          torch.logsumexp(logits, 0))
+
+
+def _ntxent_record_backward(a, b, g, temperature):
+  """Kernel ``ntxent_bwd``'s formula step by step from the record: dS from
+  the logits and both log-sum-exps, and the radial coefficient T sum_j
+  dS_ij S_ij in place of a D-long dot product a_n_i . d(a_n_i)."""
+  logits, inv_a, inv_b, lse_row, lse_col = _ntxent_record(a, b, temperature)
+  batch = logits.shape[0]
+  eye = torch.eye(batch)
+  ds = ((torch.exp(logits - lse_row[:, None])
+         + torch.exp(logits - lse_col[None, :]) - 2 * eye)
+        * g / (batch * temperature))
+  an = a.float() * inv_a[:, None]
+  bn = b.float() * inv_b[:, None]
+  c_a = temperature * (ds * logits).sum(1)
+  c_b = temperature * (ds * logits).sum(0)
+  d_a = inv_a[:, None] * (ds @ bn - an * c_a[:, None])
+  d_b = inv_b[:, None] * (ds.t() @ an - bn * c_b[:, None])
+  return d_a.to(a.dtype), d_b.to(b.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ntxent_record_backward_matches_pallas(reference, dtype):
+  """The backward kernel's decomposition against ``jax.grad`` of the
+  Pallas op and against the plain backward (which the CPU wrapper runs).
+  Tolerances: float32 math on all sides in other orders; with bf16 inputs
+  the gradients are rounded to bf16, one bf16 ulp apart at most."""
+  rng = np.random.default_rng(9)
+  a = np.abs(rng.standard_normal((12, 40))).astype(np.float32)
+  b = rng.standard_normal((12, 40)).astype(np.float32)
+  ja, ta = _to_both(a, dtype)
+  jb, tb = _to_both(b, dtype)
+  want = jax.grad(
+      lambda x, y: ntxent_pl.nt_xent_fused(x, y, 0.1, True)[0] * 3.0,
+      argnums=(0, 1))(ja, jb)
+  got = _ntxent_record_backward(ta, tb, 3.0, 0.1)
+  plain = ntxent.ntxent_bwd_plain(ta, tb, torch.tensor(3.0), 0.1)
+  wrapper = ntxent.ntxent_bwd(ta, tb, None, torch.tensor([3.0, 1.0, 1.0]),
+                              0.1)
+  for x, w, p, q in zip(got, want, plain, wrapper):
+    w = np.asarray(w, np.float32)
+    tol = GRAD_RTOL[dtype] * np.abs(w).max()
+    np.testing.assert_allclose(x.float().numpy(), w, rtol=0, atol=tol)
+    np.testing.assert_allclose(x.float().numpy(), p.float().numpy(), rtol=0,
+                               atol=tol)
+    assert q.dtype == x.dtype
+    np.testing.assert_array_equal(q.float().numpy(), p.float().numpy())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -265,6 +327,35 @@ def test_gpu_ntxent_kernel(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_ntxent_backward_kernel(cuda, dtype):
+  """Kernel ``ntxent_bwd`` from the forward's record against the plain
+  backward, and the fused op's autograd through it."""
+  gen = torch.Generator(device=cuda).manual_seed(6)
+  a = torch.randn(56, 1536, device=cuda, generator=gen).abs().to(dtype)
+  b = torch.randn(56, 1536, device=cuda, generator=gen).to(dtype)
+  record = torch.empty(ntxent.record_floats(56), device=cuda)
+  ntxent.ntxent_stats(a, b, 0.1, record)
+  g_out = torch.tensor([1.7, 0.3, 0.2], device=cuda)
+  before = ntxent.ntxent_bwd.launches
+  got = ntxent.ntxent_bwd(a, b, record, g_out, 0.1)
+  assert ntxent.ntxent_bwd.launches == before + 1
+  want = ntxent.ntxent_bwd_plain(a, b, g_out[0], 0.1)
+  # f32: summation order only.  bf16: one bf16 ulp (2^-8 relative).
+  rtol = 1e-4 if dtype == torch.float32 else 8e-3
+  for x, y in zip(got, want):
+    assert x.dtype == dtype
+    assert float((x.float() - y.float()).abs().max()) <= rtol * float(
+        y.float().abs().max())
+  x = a.clone().requires_grad_()
+  y = b.clone().requires_grad_()
+  loss, _, _ = ntxent.nt_xent_fused(x, y, 0.1)
+  (1.7 * loss).backward()
+  assert ntxent.ntxent_bwd.launches == before + 2
+  assert torch.equal(x.grad, got[0]) and torch.equal(y.grad, got[1])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_word_scores_kernel(cuda, dtype, kind):
@@ -318,7 +409,9 @@ def test_gpu_region_gradient_kernel(cuda, kind):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", KINDS)
 def test_gpu_word_gradient_kernel(cuda, kind):
-  """Kernel D against its plain version, from the record kernel B saved."""
+  """Kernel D against its plain version, from the record kernel B saved,
+  and two calls on the same inputs bit for bit (the parts of the depth are
+  added in a fixed order)."""
   region, word, mask, g = _flagship(cuda, seed=3, kind=kind)
   rn = l2_normalize(region).contiguous()
   wn = l2_normalize(word).contiguous()
@@ -326,9 +419,12 @@ def test_gpu_word_gradient_kernel(cuda, kind):
   ws.scores(rn, wn, mask, GAMMA, GAMMA, saved)
   before = ws.dwn.launches
   got = ws.dwn(rn, wn, mask, g, saved, GAMMA, GAMMA)
-  assert ws.dwn.launches == before + 1
+  again = ws.dwn(rn, wn, mask, g, saved, GAMMA, GAMMA)
+  assert ws.dwn.launches == before + 2
+  assert torch.equal(got, again)
   want = ws.dwn_plain(rn, wn, mask, g, GAMMA, GAMMA)
-  # f32 on both sides, TF32 off: summation order only.
+  # float32 accuracy on both sides (3xTF32 on the card), TF32 off in the
+  # plain version: summation order only.
   assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 

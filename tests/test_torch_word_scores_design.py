@@ -1,5 +1,6 @@
 """The design of the tensor-core word-score kernels (``csrc/word_scores.cu``
-``scores_fwd`` and ``scores_drn_*``), checked on the CPU.
+``scores_fwd``, ``scores_drn_chain`` and ``scores_dwn_chain`` with
+``scores_gemm``), checked on the CPU.
 
 The kernels cannot run here, so these tests hold a plain PyTorch model of
 their arithmetic, step by step in their layouts:
@@ -17,6 +18,15 @@ their arithmetic, step by step in their layouts:
    flagship's R = 256, L = 17, D = 768 it stays within 1e-5 of the largest
    |d_rn| of a float64 reference, ten times inside the card's tolerance of
    1e-4, on random and on peaked inputs, where single-pass TF32 does not.
+3. Kernel D's decomposition of the word gradient: E as [word row][region]
+   planes, d_wn^T = sum over images x regions of rn^T E^T in stages of 64
+   (each summed fresh, then added to a float32 total), the stages split
+   into parts of consecutive stages whose totals are added in a fixed
+   order.  It agrees with the JAX package's word gradient and `dwn_plain`
+   at a small ragged size for several part counts, and in the emulated
+   3xTF32 split over the flagship's depth K = 56 images x 256 regions =
+   14336 it stays within 1e-5 of the largest |d_wn| of a float64
+   reference (the card's tolerance is 1e-4).
 """
 
 import numpy as np
@@ -127,14 +137,14 @@ def scores_from_record(num, csq, mask, num_caps, gamma2):
   return _caption_lse(row, cap.flatten(), num_caps) / gamma2
 
 
-def drn_decomposed(rn, wn, mask, g, gamma1, gamma2, mm):
-  """Kernel C: the chain gives E = ca alpha + d_sim and F = cb alpha, then
-  H = F^T alpha, then d_rn = [E ; -H]^T [wn ; rn] per image, every product
-  taken by ``mm``, the rest in the inputs' precision."""
-  num_images, regions, dim = rn.shape
+def chain(rn, wn, mask, g, gamma1, gamma2, mm):
+  """The cotangent chain of kernels C and D from kernel B's record: E =
+  ca alpha + d_sim and F = cb alpha as [I, groups, 72, R] planes (zero past
+  a group's words), and alpha; the record's products taken by ``mm``, the
+  rest in the inputs' precision."""
   num_caps = wn.shape[0]
   (alpha, sim, p), num, csq = record(rn, wn, mask, gamma1, mm)
-  wp, mp, cap = _caption_groups(wn, mask)
+  _, mp, cap = _caption_groups(wn, mask)
   # The logsumexp VJP, then the cosine VJP: d_ctx = ca wn - cb ctx.
   row = _row_logits(num, csq, mp[None], gamma2)            # [I, G, 72]
   lse = _caption_lse(row.flatten(1), cap.flatten(), num_caps)
@@ -149,6 +159,16 @@ def drn_decomposed(rn, wn, mask, g, gamma1, gamma2, mm):
   t = alpha * (ca[..., None] * sim - cb[..., None] * p)
   e = alpha * ca[..., None] + gamma1 * (t - alpha * t.sum(-1, keepdim=True))
   f = alpha * cb[..., None]
+  return e, f, alpha
+
+
+def drn_decomposed(rn, wn, mask, g, gamma1, gamma2, mm):
+  """Kernel C: the chain gives E = ca alpha + d_sim and F = cb alpha, then
+  H = F^T alpha, then d_rn = [E ; -H]^T [wn ; rn] per image, every product
+  taken by ``mm``, the rest in the inputs' precision."""
+  num_images, regions, dim = rn.shape
+  e, f, alpha = chain(rn, wn, mask, g, gamma1, gamma2, mm)
+  wp, _, _ = _caption_groups(wn, mask)
   kp = wp.shape[0] * MAX_WORDS
   e, f, a = (x.reshape(num_images, kp, regions) for x in (e, f, alpha))
   h = mm(f.transpose(1, 2), a)                             # [I, R, R]
@@ -156,6 +176,31 @@ def drn_decomposed(rn, wn, mask, g, gamma1, gamma2, mm):
   rhs = torch.cat([wp.reshape(1, kp, dim).expand(num_images, kp, dim), rn],
                   dim=1)
   return mm(ops.transpose(1, 2), rhs)
+
+
+def dwn_decomposed(rn, wn, mask, g, gamma1, gamma2, mm, parts, stage=64):
+  """Kernel D: E's [word row][region] planes from the chain, then d_wn^T =
+  sum over the depth k = image x R + region of rn[k]^T E[k]^T, taken by
+  ``mm`` in stages of ``stage``: each stage's product is a fresh sum that
+  joins its part's float32 total, part p holds the p-th of ``parts`` runs
+  of consecutive stages, and the parts' totals are added in the order
+  p = 0, 1, ...  Returns d_wn [C, L, D] from the real word rows."""
+  num_images, regions, dim = rn.shape
+  num_caps, words, _ = wn.shape
+  e, _, _ = chain(rn, wn, mask, g, gamma1, gamma2, mm)
+  rows = e.shape[1] * MAX_WORDS
+  a = rn.reshape(num_images * regions, dim)                # [K, D]
+  b = e.permute(0, 3, 1, 2).reshape(num_images * regions, rows)  # [K, n]
+  stages = -(-a.shape[0] // stage)
+  total = torch.zeros(dim, rows)
+  for p in range(parts):
+    part = torch.zeros(dim, rows)
+    for s in range(p * stages // parts, (p + 1) * stages // parts):
+      k = slice(s * stage, (s + 1) * stage)
+      part = part + mm(a[k].t(), b[k])
+    total = total + part
+  _, _, cap = _caption_groups(wn, mask)
+  return total.t()[cap.flatten() >= 0].reshape(num_caps, words, dim)
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +211,7 @@ def drn_decomposed(rn, wn, mask, g, gamma1, gamma2, mm):
 def _inputs(seed, num_images, num_caps, regions, words, dim, kind):
   """Unit regions and words, a ragged mask and a cotangent from a numpy
   seed.  ``peaked``: each region is 3 x a real word of its caption (image
-  i pairs with caption i) plus 0.5 x noise, which gives sharp alpha and
+  i pairs with caption i modulo the captions) plus 0.5 x noise, which gives sharp alpha and
   |S| near 1, as trained features do."""
   rng = np.random.default_rng(seed)
   word = rng.standard_normal((num_caps, words, dim)).astype(np.float32)
@@ -175,9 +220,10 @@ def _inputs(seed, num_images, num_caps, regions, words, dim, kind):
   if kind == "random":
     region = rng.standard_normal((num_images, regions, dim))
   else:
+    own = np.arange(num_images) % num_caps
     pick = (rng.random((num_images, regions))
-            * max_len[:num_images]).astype(np.int64)
-    region = (3 * word[np.arange(num_images)[:, None], pick]
+            * max_len[own]).astype(np.int64)
+    region = (3 * word[own[:, None], pick]
               + 0.5 * rng.standard_normal((num_images, regions, dim)))
   g = rng.standard_normal((num_caps, num_images)).astype(np.float32)
   rn = l2_normalize(torch.from_numpy(region.astype(np.float32)))
@@ -238,6 +284,48 @@ def test_tf32x3_keeps_float32_accuracy(kind):
   scores_want = ws.scores_plain(rn.double(), wn.double(), mask.double(),
                                 GAMMA, GAMMA)
   assert float((scores.double() - scores_want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("parts", [1, 3, 10])
+def test_dwn_decomposition_matches_pallas_and_plain(parts):
+  """Kernel D's decomposition in float32, in stages of 8 over K = 5 x 16
+  and 1, 3 or 10 parts, against the JAX package's word gradient
+  (interpret mode) and `dwn_plain`: three caption groups, the last one
+  short, a ragged mask, more captions than images.  Tolerance: float32 on
+  all sides, other summation orders -> 1e-5 of the largest |d_wn| (the
+  port's kernel tests allow 1e-4)."""
+  if jnp is None:
+    pytest.skip("the JAX reference package is not installed")
+  rn, wn, mask, g = _inputs(2, 5, 7, 16, 20, 32, "random")
+  got = dwn_decomposed(rn, wn, mask, g, GAMMA, GAMMA, mm_f32, parts, stage=8)
+  _, want = ws_pl._scores_bwd_pallas(
+      jnp.asarray(rn.numpy()), jnp.asarray(wn.numpy()),
+      jnp.asarray(mask.numpy()), jnp.asarray(g.numpy()), GAMMA, GAMMA,
+      interpret=True)
+  want = np.asarray(want)
+  tol = 1e-5 * np.abs(want).max()
+  np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+  plain = ws.dwn_plain(rn, wn, mask, g, GAMMA, GAMMA)
+  np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("kind", ["random", "peaked"])
+def test_dwn_tf32x3_keeps_float32_accuracy(kind):
+  """Kernel D with every product in the emulated 3xTF32 split (the record's
+  too), over the flagship's depth K = 56 images x 256 regions = 14336 at
+  L = 17, D = 768, in the card's stages of 64 and its 8 parts: d_wn within
+  1e-5 of the largest |d_wn| of the float64 reference, ten times inside
+  the card's tolerance of 1e-4 (3.6e-5 at the flagship).  Single-pass
+  TF32 misses that bound, which shows that the emulation rounds."""
+  rn, wn, mask, g = _inputs(3, 56, 4, 256, 17, 768, kind)
+  want = ws.dwn_plain(rn.double(), wn.double(), mask.double(), g.double(),
+                      GAMMA, GAMMA)
+  scale = float(want.abs().max())
+  got = dwn_decomposed(rn, wn, mask, g, GAMMA, GAMMA, mm_tf32x3, parts=8)
+  err = float((got.double() - want).abs().max()) / scale
+  assert err <= 1e-5, err
+  single = dwn_decomposed(rn, wn, mask, g, GAMMA, GAMMA, mm_tf32, parts=8)
+  assert float((single.double() - want).abs().max()) / scale > 1e-5
 
 
 def test_tf32_rounding():

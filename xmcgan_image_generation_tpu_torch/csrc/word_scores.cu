@@ -18,13 +18,11 @@
 //   D = 768) the inputs are 44 MB (rn) and 3 MB (wn), the gradients also
 //   read the forward's 174 MB record, and the work is 10-17 GFMA per
 //   kernel, so arithmetic bounds all three.
-// Precision: the forward (B) and the region gradient (C) run every product
-//   on the tensor cores in the 3xTF32 split of tf32x3.cuh, which keeps
-//   float32 accuracy at a third of the TF32 rate (165 TFLOP/s against
-//   67 for float32 FMA on the CUDA cores).  Single-pass TF32 is not
-//   enough: d_rn = E wn - H rn is a difference of two large terms that
-//   amplifies each product's rounding.  The word gradient (D) is float32
-//   FMA on the CUDA cores.
+// Precision: all three kernels run every product on the tensor cores in
+//   the 3xTF32 split of tf32x3.cuh, which keeps float32 accuracy at a
+//   third of the TF32 rate (165 TFLOP/s against 67 for float32 FMA on the
+//   CUDA cores).  Single-pass TF32 is not enough: d_rn = E wn - H rn is a
+//   difference of two large terms that amplifies each product's rounding.
 // The region Gram matrix G_i = rn_i rn_i^T [R, R] (one batched matmul per
 //   call, by the caller) turns D-long passes into R-long ones:
 //     ctx_w . wn_w = sum_r alpha[r, w] S[r, w]
@@ -50,7 +48,7 @@
 //   alpha of each (image, group) as [word][region] planes, then ctx.wn
 //   and |ctx|^2 (the record); the alpha and G alpha planes go out by the
 //   bulk-copy engine while the block computes on.
-// C (scores_drn_chain, then scores_drn_gemm twice): the same algebra
+// C (scores_drn_chain, then scores_gemm twice): the same algebra
 //   written over all captions at once for image i,
 //     d_rn_i = E_i wn_all - H_i rn_i,  E_i = alpha ca + d_sim [R, K],
 //     H_i = (alpha diag(cb)) alpha^T [R, R],
@@ -66,13 +64,18 @@
 //   whole K and written once, so no partial goes through device memory and
 //   two calls give bit-identical results.  Both products run on wgmma and
 //   stream their operands through a ring of 3 cp.async stages.
-// D (scores_dwn): from the same record and the same E, d_wn_c = sum_i
-//   (ca alpha + d_sim)^T rn_i = sum_i E_i^T rn_i, one D-long product per
-//   (image, caption group).  The TPU summed d_wn over images in an output
-//   block revisited on consecutive grid steps; here block (group, p)
-//   loops over images p, p + P, ..., rebuilds E from the record, adds
-//   E_i^T rn_i into its own partial[p] (read and written back per image,
-//   from L2), and a second launch sums the P partials in a fixed order.
+// D (scores_dwn_chain, scores_gemm, sum_parts): from the same record and
+//   the same E, d_wn_c = sum_i (ca alpha + d_sim)^T rn_i = sum_i E_i^T rn_i.
+//   The TPU summed d_wn over images in an output block revisited on
+//   consecutive grid steps.  Here the chain writes E as [word row][region]
+//   planes, the K-major layout for K = regions, and one product runs on
+//   C's wgmma machinery with K = images x regions (14336 at the flagship):
+//   d_wn^T [features x word rows] = sum_i rn_i^T E_i^T, in 128 x 128
+//   output tiles.  48 tiles would fill 48 of 132 SMs, so the depth is
+//   split into parts of consecutive stages, each summed by its own block
+//   into its own partial (the part count minimises waves x stages), and a
+//   third launch adds the parts in a fixed order: no atomics, and two
+//   calls give bit-identical results.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -153,21 +156,11 @@ constexpr int kGemmLd = kGemmM + 8;        // [k][m] tiles: conflict-free
 constexpr int kGemmStages = 2;
 constexpr int kGemmStage = kGemmK * kGemmLd + kGemmK * kGemmN;
 constexpr int kGemmSmemFloats = kGemmStages * kGemmStage + kGemmK * kGemmN;
+constexpr int kMaxParts = 64;              // D: parts of the depth
 static_assert(kGemmSmemFloats * sizeof(float) <= 232448,
-              "shared memory of scores_drn_gemm exceeds what a block can use");
+              "shared memory of scores_gemm exceeds what a block can use");
 static_assert(kGemmM == kGemmN && kMaxRegions % kGemmM == 0,
               "H is whole tiles");
-
-// Kernel D (CUDA cores).
-constexpr int kRS = kMaxRegions + 1;   // odd row stride of [word|k][region]
-constexpr int kWChunk = 256;           // feature chunk of the d_wn product
-constexpr int kSmall = 8 * kMaxWords;  // 5 arrays, padded to a multiple of 4
-constexpr int kDwnSmemFloats = 2 * kMaxWords * kRS + 32 * kRS + kSmall;
-static_assert((kMaxWords * kRS) % 4 == 0 && (32 * kRS) % 4 == 0,
-              "16-byte aligned arrays");
-static_assert(kWChunk == 8 * 32, "d_wn tiles are 32 regions x 256 features");
-static_assert(kDwnSmemFloats * sizeof(float) <= 232448,
-              "shared memory of scores_dwn exceeds what a block can use");
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -681,23 +674,72 @@ scores_fwd(const float* __restrict__ rn, const float* __restrict__ wn,
 }
 
 // ---------------------------------------------------------------------------
-// C: scores_drn_chain, then scores_drn_gemm for H and for d_rn.
+// The cotangent chain of C and D, then C: scores_drn_chain, then
+// scores_gemm for H and for d_rn.
 // ---------------------------------------------------------------------------
 
+// Per word row of a caption group: its mask, the record's ctx.wn and
+// |ctx|^2, and d_ctx = ca wn - cb ctx.
+struct ChainWords {
+  float mask[kMaxWords], num[kMaxWords], csq[kMaxWords];
+  float ca[kMaxWords], cb[kMaxWords];
+};
+
+// The word coefficients ca and cb of (image i, caption group at c0) from
+// its record, zero past the group's words.  Ends with a barrier.
+__device__ void chain_coefficients(ChainWords& cw, const float* record,
+                                   const float* mask, const float* g,
+                                   const Shape& sh, int i, int c0,
+                                   int num_words, float gamma2) {
+  const int t = threadIdx.x;
+  if (t < kMaxWords) {
+    cw.mask[t] = t < num_words ? mask[(size_t)c0 * sh.words + t] : 0.f;
+    cw.num[t] = record[3 * kPlane + t];
+    cw.csq[t] = record[3 * kPlane + kMaxWords + t];
+  }
+  __syncthreads();
+  if (t < kMaxWords) {
+    float ca = 0.f, cb = 0.f;
+    if (t < num_words)
+      word_coefficients(cw.num, cw.csq, cw.mask, g, sh, i, c0, t, gamma2, ca,
+                        cb);
+    cw.ca[t] = ca;
+    cw.cb[t] = cb;
+  }
+  __syncthreads();
+}
+
+// E = alpha ca + d_sim of word row w at regions lane + 32 q, where d_sim =
+// g1 (t - alpha sum_r t), t = alpha d_alpha, is the softmax VJP of d_alpha
+// = ca S - cb G alpha (the record's three planes).
+__device__ __forceinline__ void e_row(const float* record, int w, float ca,
+                                      float cb, float gamma1,
+                                      float (&e)[kRegionsPerLane]) {
+  const float* row = record + w * kMaxRegions + (threadIdx.x & 31);
+  float a[kRegionsPerLane], tp[kRegionsPerLane], colsum = 0.f;
+#pragma unroll
+  for (int q = 0; q < kRegionsPerLane; ++q) {
+    a[q] = row[32 * q];
+    tp[q] = a[q] * (ca * row[kPlane + 32 * q] - cb * row[2 * kPlane + 32 * q]);
+    colsum += tp[q];
+  }
+  colsum = warp_sum(colsum);
+#pragma unroll
+  for (int q = 0; q < kRegionsPerLane; ++q)
+    e[q] = a[q] * ca + gamma1 * (tp[q] - a[q] * colsum);
+}
+
 // Pass 1, block (caption group, image i): the cotangent chain of the
-// group from its record.  With d_ctx = ca wn - cb ctx, d_alpha = ca S -
-// cb G alpha and the softmax VJP d_sim = g1 (t - alpha sum_r t), t =
-// alpha d_alpha, it writes E = alpha ca + d_sim into columns group * 72..
-// of the image's operand `ops` and F = cb alpha into columns group * 72..
-// of its `fbuf`, both [region][word row], through a transpose in shared
-// memory.  Warp j holds words 9j..9j+8, lane l regions l + 32 q.
+// group from its record.  It writes E = alpha ca + d_sim into columns
+// group * 72.. of the image's operand `ops` and F = cb alpha into columns
+// group * 72.. of its `fbuf`, both [region][word row], through a transpose
+// in shared memory.  Warp j holds words 9j..9j+8, lane l regions l + 32 q.
 __global__ void __launch_bounds__(kThreads)
 scores_drn_chain(const float* __restrict__ saved,
                  const float* __restrict__ mask, const float* __restrict__ g,
                  float* __restrict__ ops, float* __restrict__ fbuf, Shape sh,
                  int group, int kp, float gamma1, float gamma2) {
-  __shared__ float s_mask[kMaxWords], s_num[kMaxWords], s_csq[kMaxWords];
-  __shared__ float s_ca[kMaxWords], s_cb[kMaxWords];
+  __shared__ ChainWords cw;
   extern __shared__ float4 smem4[];
   float* const tr = reinterpret_cast<float*>(smem4);  // [region][word]
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -705,50 +747,23 @@ scores_drn_chain(const float* __restrict__ saved,
   const int c0 = grp * group;
   const int num_words = min(group, sh.num_caps - c0) * sh.words;
   const float* record = saved + ((size_t)i * gridDim.x + grp) * kRecord;
-  if (t < kMaxWords) {
-    s_mask[t] = t < num_words ? mask[(size_t)c0 * sh.words + t] : 0.f;
-    s_num[t] = record[3 * kPlane + t];
-    s_csq[t] = record[3 * kPlane + kMaxWords + t];
-  }
-  __syncthreads();
-  if (t < kMaxWords) {
-    float ca = 0.f, cb = 0.f;
-    if (t < num_words)
-      word_coefficients(s_num, s_csq, s_mask, g, sh, i, c0, t, gamma2, ca,
-                        cb);
-    s_ca[t] = ca;
-    s_cb[t] = cb;
-  }
-  __syncthreads();
+  chain_coefficients(cw, record, mask, g, sh, i, c0, num_words, gamma2);
   // E, then F, each through `tr` into its [region][word row] rows.
 #pragma unroll 1
   for (int pass = 0; pass < 2; ++pass) {
     for (int m = 0; m < kWordsPerWarp; ++m) {
       const int w = warp * kWordsPerWarp + m;
-      const float* row = record + w * kMaxRegions + lane;
-      float a[kRegionsPerLane];
-#pragma unroll
-      for (int q = 0; q < kRegionsPerLane; ++q) a[q] = row[32 * q];
+      float e[kRegionsPerLane];
       if (pass == 0) {
-        const float ca = s_ca[w], cb = s_cb[w];
-        float tp[kRegionsPerLane], colsum = 0.f;
-#pragma unroll
-        for (int q = 0; q < kRegionsPerLane; ++q) {
-          tp[q] = a[q] * (ca * row[kPlane + 32 * q] -
-                          cb * row[2 * kPlane + 32 * q]);
-          colsum += tp[q];
-        }
-        colsum = warp_sum(colsum);
-#pragma unroll
-        for (int q = 0; q < kRegionsPerLane; ++q)
-          tr[(lane + 32 * q) * kChainLd + w] =
-              a[q] * ca + gamma1 * (tp[q] - a[q] * colsum);
+        e_row(record, w, cw.ca[w], cw.cb[w], gamma1, e);
       } else {
-        const float cb = s_cb[w];
+        const float* row = record + w * kMaxRegions + lane;
 #pragma unroll
-        for (int q = 0; q < kRegionsPerLane; ++q)
-          tr[(lane + 32 * q) * kChainLd + w] = a[q] * cb;
+        for (int q = 0; q < kRegionsPerLane; ++q) e[q] = row[32 * q] * cw.cb[w];
       }
+#pragma unroll
+      for (int q = 0; q < kRegionsPerLane; ++q)
+        tr[(lane + 32 * q) * kChainLd + w] = e[q];
     }
     __syncthreads();
     float* out = pass == 0 ? ops + (size_t)i * kMaxRegions * (kp + kMaxRegions)
@@ -762,10 +777,40 @@ scores_drn_chain(const float* __restrict__ saved,
   }
 }
 
+// D's pass 1, block (caption group, image i): E of the group from its
+// record, written straight into the (image, group) plane of `ebuf`
+// ([image][group][word row][region]), the K-major layout in which wgmma
+// reads E for K = regions.  Zero rows past the group's words.
+__global__ void __launch_bounds__(kThreads)
+scores_dwn_chain(const float* __restrict__ saved,
+                 const float* __restrict__ mask, const float* __restrict__ g,
+                 float* __restrict__ ebuf, Shape sh, int group, float gamma1,
+                 float gamma2) {
+  __shared__ ChainWords cw;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = blockIdx.x, i = blockIdx.y;
+  const int c0 = grp * group;
+  const int num_words = min(group, sh.num_caps - c0) * sh.words;
+  const size_t cell = (size_t)i * gridDim.x + grp;
+  const float* record = saved + cell * kRecord;
+  chain_coefficients(cw, record, mask, g, sh, i, c0, num_words, gamma2);
+  float* plane = ebuf + cell * kPlane;
+  for (int m = 0; m < kWordsPerWarp; ++m) {
+    const int w = warp * kWordsPerWarp + m;
+    float e[kRegionsPerLane];
+    e_row(record, w, cw.ca[w], cw.cb[w], gamma1, e);
+#pragma unroll
+    for (int q = 0; q < kRegionsPerLane; ++q)
+      plane[w * kMaxRegions + lane + 32 * q] = e[q];
+  }
+}
+
 // The operands of a product out[i] = A_i^T B_i^T of depth K: row k of
-// A_i ([k][m], `a_width` wide, null for a row of zeros), row n of B_i
-// ([n][k]: K-major, kMaxRegions rows of `b_length` >= K), and where a pair
-// of results (m, n), (m, n + 1) goes.
+// A_i ([k][m], `a_width` wide, null for a row of zeros), the 4 values at
+// (n, k..k + 3) of B_i ([n][k]: K-major; null for zeros), the run of
+// stages of depth kGemmK that block z = i sums, a valid address for
+// loads that read nothing, and where a pair of results (m, n), (m, n + 1)
+// goes.
 
 // Pass 2: H_i = alpha_i^T F_i over the image's kp word rows (alpha's rows
 // straight from the record), stored negated beside E_i: H is symmetric,
@@ -782,10 +827,12 @@ struct HProduct {
     return saved + ((size_t)i * num_groups + grp) * kRecord +
            (size_t)(k - grp * kMaxWords) * kMaxRegions;
   }
-  __device__ int b_length() const { return kp; }
-  __device__ const float* b_row(int i, int n) const {
-    return fbuf + ((size_t)i * kMaxRegions + n) * kp;
+  __device__ const float* b_ptr(int i, int n, int k) const {
+    return k < kp ? fbuf + ((size_t)i * kMaxRegions + n) * kp + k : nullptr;
   }
+  __device__ int stage_begin(int) const { return 0; }
+  __device__ int stage_end(int) const { return (kp + kGemmK - 1) / kGemmK; }
+  __device__ const float* fallback() const { return fbuf; }
   __device__ void store(int i, int m, int n, float v0, float v1) const {
     *reinterpret_cast<float2*>(
         ops + ((size_t)i * kMaxRegions + m) * (kp + kMaxRegions) + kp + n) =
@@ -812,15 +859,65 @@ struct DrnProduct {
     return j < num_words ? wn + ((size_t)c0 * sh.words + j) * sh.dim
                          : nullptr;
   }
-  __device__ int b_length() const { return kp + kMaxRegions; }
-  __device__ const float* b_row(int i, int n) const {
-    return ops + ((size_t)i * kMaxRegions + n) * (kp + kMaxRegions);
+  __device__ const float* b_ptr(int i, int n, int k) const {
+    return k < kp + kMaxRegions
+               ? ops + ((size_t)i * kMaxRegions + n) * (kp + kMaxRegions) + k
+               : nullptr;
   }
+  __device__ int stage_begin(int) const { return 0; }
+  __device__ int stage_end(int) const {
+    return (depth() + kGemmK - 1) / kGemmK;
+  }
+  __device__ const float* fallback() const { return ops; }
   __device__ void store(int i, int m, int n, float v0, float v1) const {
     if (m >= sh.dim) return;
     float* p = d_rn + ((size_t)i * sh.regions + n) * sh.dim + m;
     if (n < sh.regions) p[0] = v0;
     if (n + 1 < sh.regions) p[sh.dim] = v1;
+  }
+};
+
+// D: d_wn^T = sum over images of rn_i^T E_i^T: rows m are features,
+// columns n the word rows of the caption groups.  The depth runs over
+// images x rp (the regions rounded up to 4): row k of A is region k % rp
+// of image k / rp (null past the regions), column n of B row n of E's
+// (image, group) plane.  Block z = p sums the p-th of `parts` runs of
+// consecutive stages into partial p ([parts][num_caps * words][dim]).
+struct DwnProduct {
+  const float* rn;
+  const float* ebuf;
+  float* partial;
+  Shape sh;
+  int group, num_groups, rp, parts;
+  __device__ int depth() const { return sh.num_images * rp; }
+  __device__ int a_width() const { return sh.dim; }
+  __device__ const float* a_row(int, int k) const {
+    const int img = k / rp, r = k - img * rp;
+    return r < sh.regions ? rn + ((size_t)img * sh.regions + r) * sh.dim
+                          : nullptr;
+  }
+  __device__ const float* b_ptr(int, int n, int k) const {
+    const int grp = n / kMaxWords, img = k / rp;
+    if (grp >= num_groups || k >= depth()) return nullptr;
+    return ebuf + (((size_t)img * num_groups + grp) * kMaxWords + n -
+                   grp * kMaxWords) * kMaxRegions + (k - img * rp);
+  }
+  __device__ int stages() const { return (depth() + kGemmK - 1) / kGemmK; }
+  __device__ int stage_begin(int p) const { return p * stages() / parts; }
+  __device__ int stage_end(int p) const { return (p + 1) * stages() / parts; }
+  __device__ const float* fallback() const { return ebuf; }
+  __device__ void put(int p, int m, int n, float v) const {
+    const int grp = n / kMaxWords, j = n - grp * kMaxWords;
+    if (grp >= num_groups) return;
+    const int c0 = grp * group;
+    if (j < min(group, sh.num_caps - c0) * sh.words)
+      partial[((size_t)p * sh.num_caps * sh.words + (size_t)c0 * sh.words +
+               j) * sh.dim + m] = v;
+  }
+  __device__ void store(int p, int m, int n, float v0, float v1) const {
+    if (m >= sh.dim) return;
+    put(p, m, n, v0);
+    put(p, m, n + 1, v1);
   }
 };
 
@@ -833,7 +930,7 @@ __device__ __forceinline__ void load_gemm_stage(float* stage,
                                                 int m0, int n0, int kt) {
   constexpr int kQuads = kGemmM / 4;
   const int k0 = kt * kGemmK;
-  const float* fallback = op.b_row(i, 0);
+  const float* fallback = op.fallback();
   for (int c = threadIdx.x; c < kGemmK * kQuads; c += kThreads) {
     const int kr = c / kQuads, q = 4 * (c % kQuads);
     const int k = k0 + kr;
@@ -844,14 +941,15 @@ __device__ __forceinline__ void load_gemm_stage(float* stage,
   float* b = stage + kGemmK * kGemmLd;
   for (int c = threadIdx.x; c < kGemmN * (kGemmK / 4); c += kThreads) {
     const int n = c / (kGemmK / 4), k = k0 + 4 * (c % (kGemmK / 4));
-    const bool ok = k < op.b_length();
-    cp_async16(b + ((k - k0) / 4 * kGemmN + n) * 4,
-               ok ? op.b_row(i, n0 + n) + k : fallback, ok);
+    const float* src = op.b_ptr(i, n0 + n, k);
+    cp_async16(b + ((k - k0) / 4 * kGemmN + n) * 4, src ? src : fallback,
+               src != nullptr);
   }
 }
 
-// Block (n tile, m tile, image i): the 128 x 128 tile of out[i] at rows
-// m0 = 128 y, columns n0 = 128 x, by wgmma.  Warpgroup q holds rows
+// Block (n tile, m tile, i): the 128 x 128 tile of out[i] at rows
+// m0 = 128 y, columns n0 = 128 x, over stages op.stage_begin(i) ..
+// op.stage_end(i) - 1, by wgmma.  Warpgroup q holds rows
 // 64 q.. of the tile, warp 4q + v rows 64 q + 16 v..; A fragments are
 // split in registers (two buffers, as in the forward), B is split once a
 // stage into big and small planes.  The tensor cores truncate where they
@@ -860,7 +958,7 @@ __device__ __forceinline__ void load_gemm_stage(float* stage,
 // total in rounded float32.
 template <class Product>
 __global__ void __launch_bounds__(kThreads, 1)
-scores_drn_gemm(const Product op) {
+scores_gemm(const Product op) {
   extern __shared__ float4 smem4[];
   float* const sm = reinterpret_cast<float*>(smem4);
   float* const b_small = sm + kGemmStages * kGemmStage;
@@ -874,9 +972,9 @@ scores_drn_gemm(const Product op) {
   for (int j = 0; j < 16; ++j)
 #pragma unroll
     for (int x = 0; x < 4; ++x) acc[j][x] = total[j][x] = 0.f;
-  const int nk = (op.depth() + kGemmK - 1) / kGemmK;
+  const int kt0 = op.stage_begin(i), nk = op.stage_end(i) - kt0;
   for (int s = 0; s < kGemmStages - 1; ++s) {
-    if (s < nk) load_gemm_stage(sm + s * kGemmStage, op, i, m0, n0, s);
+    if (s < nk) load_gemm_stage(sm + s * kGemmStage, op, i, m0, n0, kt0 + s);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -889,7 +987,7 @@ scores_drn_gemm(const Product op) {
     const int next = kt + kGemmStages - 1;
     if (next < nk)
       load_gemm_stage(sm + (next % kGemmStages) * kGemmStage, op, i, m0, n0,
-                      next);
+                      kt0 + next);
     cp_async_commit();
     uint32_t ab[2][4], as[2][4];
 #pragma unroll
@@ -940,203 +1038,6 @@ scores_drn_gemm(const Product op) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// D: scores_dwn (float32 FMA on the CUDA cores).
-// ---------------------------------------------------------------------------
-
-using Tile = float[kRegionsPerLane][kWordsPerWarp];
-
-// Shared memory of kernel D, in floats; every array starts 16-byte
-// aligned.
-struct Smem {
-  float* alpha;   // [kMaxWords][kRS]: softmax weights
-  float* tile;    // [32][kWChunk] rn tile
-  float* mask;    // [kMaxWords], and below, one value per word
-  float* num;     // ctx . wn
-  float* csq;     // |ctx|^2
-  float* ca;      // d_ctx = ca wn - cb ctx
-  float* cb;
-  float* sim;     // [kMaxWords][kRS], S then E = alpha ca + d_sim
-};
-
-__device__ Smem carve(float* base) {
-  Smem s;
-  s.alpha = base;
-  s.tile = s.alpha + kMaxWords * kRS;
-  s.mask = s.tile + 32 * kRS;
-  s.num = s.mask + kMaxWords;
-  s.csq = s.num + kMaxWords;
-  s.ca = s.csq + kMaxWords;
-  s.cb = s.ca + kMaxWords;
-  s.sim = s.mask + kSmall;
-  return s;
-}
-
-__device__ void load_tile(Tile& v, const float* plane) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int m = 0; m < kWordsPerWarp; ++m)
-#pragma unroll
-    for (int i = 0; i < kRegionsPerLane; ++i)
-      v[i][m] = plane[(warp * kWordsPerWarp + m) * kMaxRegions + lane +
-                      32 * i];
-}
-
-__device__ void load_mask(const Smem& s, const float* mask, const Shape& sh,
-                          int c0, int num_words) {
-  for (int w = threadIdx.x; w < kMaxWords; w += kThreads)
-    s.mask[w] = w < num_words ? mask[(size_t)c0 * sh.words + w] : 0.f;
-}
-
-// The cotangent chain of one (image i, caption group at c0) from what
-// the forward saved in `record` (the chain of _bwd_cell_chain): alpha
-// into s.alpha, the mask, d_ctx = ca wn - cb ctx as s.ca and s.cb, and
-// E = alpha ca + d_sim [word][region] in s.sim, where d_sim is the softmax
-// VJP of d_alpha = rn d_ctx^T = ca S - cb G alpha.
-// Starts with a barrier; on return each thread has written only its own
-// tile of E, so a reader of other lanes' E synchronizes first.
-__device__ void cotangent_chain(const Smem& s, const float* record,
-                                const float* mask, const float* g,
-                                const Shape& sh, int i, int c0,
-                                int num_words, float gamma1, float gamma2) {
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  // The forward's alpha (registers and s.alpha), S (s.sim), G alpha
-  // (registers), ctx.wn and |ctx|^2 of this group.
-  __syncthreads();
-  Tile alpha, tp;  // tp: G alpha, then t = alpha d_alpha
-  load_mask(s, mask, sh, c0, num_words);
-  load_tile(alpha, record);
-  load_tile(tp, record + 2 * kPlane);
-#pragma unroll
-  for (int m = 0; m < kWordsPerWarp; ++m)
-#pragma unroll
-    for (int i2 = 0; i2 < kRegionsPerLane; ++i2) {
-      const int w = warp * kWordsPerWarp + m, r = lane + 32 * i2;
-      s.alpha[w * kRS + r] = alpha[i2][m];
-      s.sim[w * kRS + r] = record[kPlane + w * kMaxRegions + r];
-    }
-  for (int w = t; w < kMaxWords; w += kThreads) {
-    s.num[w] = record[3 * kPlane + w];
-    s.csq[w] = record[3 * kPlane + kMaxWords + w];
-  }
-  __syncthreads();
-
-  if (t < kMaxWords) {
-    float ca = 0.f, cb = 0.f;
-    if (t < num_words)
-      word_coefficients(s.num, s.csq, s.mask, g, sh, i, c0, t, gamma2, ca,
-                        cb);
-    s.ca[t] = ca;
-    s.cb[t] = cb;
-  }
-  __syncthreads();
-
-  // d_alpha = ca S - cb G alpha; softmax VJP over regions,
-  // d_sim = g1 (t - alpha sum_r t) with t = alpha d_alpha; and
-  // E = alpha ca + d_sim over S in s.sim (this thread's tile only).
-#pragma unroll
-  for (int m = 0; m < kWordsPerWarp; ++m) {
-    const int w = warp * kWordsPerWarp + m;
-    const float ca = s.ca[w], cb = s.cb[w];
-    float* row = s.sim + w * kRS + lane;
-    float colsum = 0.f;
-#pragma unroll
-    for (int i2 = 0; i2 < kRegionsPerLane; ++i2) {
-      const float d_alpha = ca * row[32 * i2] - cb * tp[i2][m];
-      tp[i2][m] = alpha[i2][m] * d_alpha;
-      colsum += tp[i2][m];
-    }
-    colsum = warp_sum(colsum);
-#pragma unroll
-    for (int i2 = 0; i2 < kRegionsPerLane; ++i2)
-      row[32 * i2] = alpha[i2][m] * ca +
-                     gamma1 * (tp[i2][m] - alpha[i2][m] * colsum);
-  }
-}
-
-// d_wn of caption group blockIdx.x, summed over images p, p + P, ... for
-// p = blockIdx.y into partial[p] ([num_caps * words, dim] each): per image
-// it rebuilds E from the forward's record (`cotangent_chain`) and adds
-// E^T rn_i, walking D in chunks of kWChunk features and the regions in
-// tiles of 32.  Warp j holds words 9j..9j+8 and lane l features 4l..4l+3
-// and 128 + 4l..128 + 4l + 3 of a chunk, so that 17 shared-memory loads
-// (9 broadcasts of E, two float4 of rn) feed 72 FMAs.
-__global__ void __launch_bounds__(kThreads, 1)
-scores_dwn(const float* __restrict__ rn, const float* __restrict__ mask,
-           const float* __restrict__ g, const float* __restrict__ saved,
-           float* __restrict__ partial, Shape sh, int group, int parts,
-           float gamma1, float gamma2) {
-  extern __shared__ float4 smem4[];
-  const Smem s = carve(reinterpret_cast<float*>(smem4));
-  const int grp = blockIdx.x, p_idx = blockIdx.y;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int num_groups = gridDim.x;
-  const int c0 = grp * group;
-  const int num_words = min(group, sh.num_caps - c0) * sh.words;
-  float* out_g = partial + ((size_t)p_idx * sh.num_caps + c0) * sh.words *
-                               sh.dim;
-  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int i = p_idx; i < sh.num_images; i += parts) {
-    const bool first = i == p_idx;
-    cotangent_chain(s, saved + ((size_t)i * num_groups + grp) * kRecord,
-                    mask, g, sh, i, c0, num_words, gamma1, gamma2);
-    const float* rn_i = rn + (size_t)i * sh.regions * sh.dim;
-    for (int d0 = 0; d0 < sh.dim; d0 += kWChunk) {
-      const int da = d0 + 4 * lane, db = da + kWChunk / 2;
-      float acc[kWordsPerWarp][8];
-#pragma unroll
-      for (int m = 0; m < kWordsPerWarp; ++m) {
-        const int w = warp * kWordsPerWarp + m;
-        const float* row = out_g + (size_t)w * sh.dim;
-        const bool ok = !first && w < num_words;
-        const float4 a = ok && da + 4 <= sh.dim ? ld4(row + da) : z;
-        const float4 b = ok && db + 4 <= sh.dim ? ld4(row + db) : z;
-        acc[m][0] = a.x; acc[m][1] = a.y; acc[m][2] = a.z; acc[m][3] = a.w;
-        acc[m][4] = b.x; acc[m][5] = b.y; acc[m][6] = b.z; acc[m][7] = b.w;
-      }
-      for (int r0 = 0; r0 < sh.regions; r0 += 32) {
-        __syncthreads();
-        // rn_i[r0 .. r0 + 32, d0 .. d0 + kWChunk] as [32][kWChunk].
-        for (int idx = t; idx < 32 * (kWChunk / 4); idx += kThreads) {
-          const int rr = idx / (kWChunk / 4), c = 4 * (idx % (kWChunk / 4));
-          st4(s.tile + rr * kWChunk + c,
-              (r0 + rr < sh.regions && d0 + c + 4 <= sh.dim)
-                  ? ld4(rn_i + (size_t)(r0 + rr) * sh.dim + d0 + c) : z);
-        }
-        __syncthreads();
-        const float* er = s.sim + warp * kWordsPerWarp * kRS + r0;
-#pragma unroll 4
-        for (int rr = 0; rr < 32; ++rr) {
-          float e[kWordsPerWarp];
-#pragma unroll
-          for (int m = 0; m < kWordsPerWarp; ++m) e[m] = er[m * kRS + rr];
-          const float4 x0 = ld4(s.tile + rr * kWChunk + 4 * lane);
-          const float4 x1 = ld4(s.tile + rr * kWChunk + kWChunk / 2 +
-                                4 * lane);
-          const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-          for (int m = 0; m < kWordsPerWarp; ++m)
-#pragma unroll
-            for (int n = 0; n < 8; ++n) acc[m][n] += e[m] * x[n];
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < kWordsPerWarp; ++m) {
-        const int w = warp * kWordsPerWarp + m;
-        if (w >= num_words) continue;
-        float* row = out_g + (size_t)w * sh.dim;
-        if (da + 4 <= sh.dim)
-          st4(row + da, make_float4(acc[m][0], acc[m][1], acc[m][2],
-                                    acc[m][3]));
-        if (db + 4 <= sh.dim)
-          st4(row + db, make_float4(acc[m][4], acc[m][5], acc[m][6],
-                                    acc[m][7]));
-      }
-    }
-  }
-}
-
 // out[n] = sum over p of partial[p, n], in the order p = 0, 1, ...
 __global__ void sum_parts(const float* __restrict__ partial,
                           float* __restrict__ out, size_t n, int parts) {
@@ -1147,6 +1048,8 @@ __global__ void sum_parts(const float* __restrict__ partial,
     out[idx] = acc;
   }
 }
+
+int round_up4(int n) { return (n + 3) / 4 * 4; }
 
 int check_shape(const Shape& sh) {
   if (sh.num_images < 1 || sh.num_caps < 1 || sh.dim < 4 || sh.dim % 4 ||
@@ -1159,11 +1062,11 @@ int check_shape(const Shape& sh) {
 template <class Product>
 int launch_gemm(const Product& op, dim3 grid, cudaStream_t st) {
   const int smem = kGemmSmemFloats * sizeof(float);
-  int e = cudaFuncSetAttribute(scores_drn_gemm<Product>,
+  int e = cudaFuncSetAttribute(scores_gemm<Product>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
   if (e != cudaSuccess) return e;
-  scores_drn_gemm<Product><<<grid, kThreads, smem, st>>>(op);
+  scores_gemm<Product><<<grid, kThreads, smem, st>>>(op);
   return cudaGetLastError();
 }
 
@@ -1259,33 +1162,63 @@ int xmc_word_scores_drn(const void* rn, const void* wn, const void* mask,
                      st);
 }
 
-// Same inputs as xmc_word_scores_drn but for the word gradient: partial:
-// [parts, num_caps, words, dim] scratch (may be d_wn itself when parts ==
-// 1); d_wn: [num_caps, words, dim].  Blocks own (caption group, part of
-// the images); a second launch sums the parts in a fixed order.
+// Parts of the word gradient's depth on `sms` multiprocessors (one
+// block each): the fewest that minimise waves x stages per part; 0 for
+// captions too long.
+int xmc_word_scores_dwn_parts(int num_images, int num_caps, int regions,
+                              int words, int dim, int sms) {
+  const int rows = xmc_word_scores_word_rows(num_caps, words);
+  if (!rows || sms < 1 || num_images < 1 || regions < 1 || dim < 1) return 0;
+  const long tiles = (long)((rows + kGemmN - 1) / kGemmN) *
+                     ((dim + kGemmM - 1) / kGemmM);
+  const int stages = (num_images * round_up4(regions) + kGemmK - 1) / kGemmK;
+  int best = 1;
+  long best_cost = -1;
+  for (int p = 1; p <= stages && p <= kMaxParts; ++p) {
+    const long cost = (tiles * p + sms - 1) / sms * ((stages + p - 1) / p);
+    if (best_cost < 0 || cost < best_cost) {
+      best = p;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// Same inputs as xmc_word_scores_drn but for the word gradient: ebuf:
+// [num_images, word rows, 256] scratch for E's planes (word rows from
+// xmc_word_scores_word_rows); partial: [parts, num_caps, words, dim]
+// scratch (may be d_wn itself when parts == 1), parts from
+// xmc_word_scores_dwn_parts; d_wn: [num_caps, words, dim].  Three
+// launches: the chain, the product in parts of the depth, and the sum of
+// the parts in a fixed order.
 int xmc_word_scores_dwn(const void* rn, const void* mask, const void* g,
-                        const void* saved, void* partial, void* d_wn,
-                        int num_images, int num_caps, int regions, int words,
-                        int dim, int parts, float gamma1, float gamma2,
-                        void* stream) {
+                        const void* saved, void* ebuf, void* partial,
+                        void* d_wn, int num_images, int num_caps, int regions,
+                        int words, int dim, int parts, float gamma1,
+                        float gamma2, void* stream) {
   const Shape sh{num_images, num_caps, regions, words, dim};
   int e = check_shape(sh);
   if (e != cudaSuccess) return e;
-  if (parts < 1 || parts > num_images) return cudaErrorInvalidValue;
-  if (parts == 1 && partial != d_wn) return cudaErrorInvalidValue;
   const int group = kMaxWords / words;
+  const int num_groups = (num_caps + group - 1) / group;
+  const int rp = round_up4(regions);
+  const int stages = (num_images * rp + kGemmK - 1) / kGemmK;
+  if (parts < 1 || parts > stages || parts > kMaxParts)
+    return cudaErrorInvalidValue;
+  if (parts == 1 && partial != d_wn) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)kDwnSmemFloats * sizeof(float);
-  e = cudaFuncSetAttribute(scores_dwn,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((num_caps + group - 1) / group, parts);
-  scores_dwn<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(rn), static_cast<const float*>(mask),
-      static_cast<const float*>(g), static_cast<const float*>(saved),
-      static_cast<float*>(partial), sh, group, parts, gamma1, gamma2);
+  float* ebuf_f = static_cast<float*>(ebuf);
+  scores_dwn_chain<<<dim3(num_groups, num_images), kThreads, 0, st>>>(
+      static_cast<const float*>(saved), static_cast<const float*>(mask),
+      static_cast<const float*>(g), ebuf_f, sh, group, gamma1, gamma2);
   e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const DwnProduct op{static_cast<const float*>(rn), ebuf_f,
+                      static_cast<float*>(partial), sh, group, num_groups, rp,
+                      parts};
+  e = launch_gemm(op, dim3((num_groups * kMaxWords + kGemmN - 1) / kGemmN,
+                           (dim + kGemmM - 1) / kGemmM, parts),
+                  st);
   if (e != cudaSuccess || parts == 1) return e;
   const size_t n = (size_t)num_caps * words * dim;
   sum_parts<<<1024, 256, 0, st>>>(static_cast<const float*>(partial),

@@ -40,14 +40,18 @@ _F = ctypes.c_float
 # argtypes of every entry point in csrc/ (pointers and the stream as
 # c_void_p, so that ctypes never cuts a 64-bit address).
 SIGNATURES = {
-    "xmc_ntxent_f32": (_P, _P, _P, _P, _I, _I, _F, _P),
-    "xmc_ntxent_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
+    "xmc_ntxent_fwd_f32": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
+    "xmc_ntxent_fwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
+    "xmc_ntxent_bwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    "xmc_ntxent_bwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    "xmc_empty_kernel": (_P,),
     "xmc_word_scores_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _F, _P),
     "xmc_word_scores_drn": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _F, _F, _P),
-    "xmc_word_scores_dwn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _F, _F, _P),
+    "xmc_word_scores_dwn": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _F, _F, _P),
+    "xmc_word_scores_dwn_parts": (_I, _I, _I, _I, _I, _I),
     "xmc_word_scores_group_size": (_I,),
     "xmc_word_scores_record_floats": (),
     "xmc_word_scores_word_rows": (_I, _I),

@@ -5,16 +5,18 @@
 region and word features (kernel ``scores_fwd`` of
 ``csrc/word_scores.cu``, the port of ``_scores_kernel``); `drn` their
 gradient with respect to the regions for a cotangent of the scores
-(kernel ``scores_drn``, the port of ``_bwd_drn_kernel``); and `dwn` the
-gradient with respect to the words, summed over images (kernel
-``scores_dwn``, the port of ``_bwd_dwn_kernel``).  The forward kernel
+(``scores_drn_chain`` and ``scores_gemm``, the port of
+``_bwd_drn_kernel``); and `dwn` the gradient with respect to the words,
+summed over images (``scores_dwn_chain``, ``scores_gemm`` and
+``sum_parts``, the port of ``_bwd_dwn_kernel``).  The forward kernel
 takes the regions' Gram matrix ``rn rn^T`` (one batched matmul inside
 `scores`) and, when a gradient will follow, saves what both gradients
-start from into a `new_saved` buffer, which `drn` and `dwn` read.  The
-forward and the region gradient run their products on the tensor cores
-in the float32-accurate 3xTF32 split; `drn` is three launches (the
-cotangent chain, ``H``, then ``d_rn`` as one product per image) into
-scratch it allocates.  For
+start from into a `new_saved` buffer, which `drn` and `dwn` read.  All
+three run their products on the tensor cores in the float32-accurate
+3xTF32 split.  `drn` is three launches (the cotangent chain, ``H``, then
+``d_rn`` as one product per image) and `dwn` three (the chain, one
+product over images x regions in parts of that depth, the parts' sum in
+a fixed order), into scratch each allocates.  For
 CPU tensors each runs its plain PyTorch version (`scores_plain`,
 `drn_plain`, `dwn_plain`).  `word_scores` is the public ``[caption,
 image]`` op over raw features; on the card its backward gives the
@@ -50,7 +52,7 @@ def scores_plain(rn: torch.Tensor, wn: torch.Tensor, mask: torch.Tensor,
 
 def drn_plain(rn: torch.Tensor, wn: torch.Tensor, mask: torch.Tensor,
               g: torch.Tensor, gamma1: float, gamma2: float) -> torch.Tensor:
-  """The plain version of kernel ``scores_drn``: the gradient of
+  """The plain version of kernel C (`drn`): the gradient of
   ``sum(g * scores_plain(rn, wn, mask).T)`` with respect to ``rn``.
 
   ``g`` is ``[caption, image]``, the layout of the public scores.
@@ -64,7 +66,7 @@ def drn_plain(rn: torch.Tensor, wn: torch.Tensor, mask: torch.Tensor,
 
 def dwn_plain(rn: torch.Tensor, wn: torch.Tensor, mask: torch.Tensor,
               g: torch.Tensor, gamma1: float, gamma2: float) -> torch.Tensor:
-  """The plain version of kernel ``scores_dwn``: the gradient of
+  """The plain version of kernel D (`dwn`): the gradient of
   ``sum(g * scores_plain(rn, wn, mask).T)`` with respect to ``wn``."""
   with torch.enable_grad():
     y = wn.detach().requires_grad_()
@@ -213,23 +215,27 @@ def dwn(rn: torch.Tensor, wn: torch.Tensor, mask: torch.Tensor,
   _check(rn, wn, mask, g)
   if rn.device.type == "cpu":
     return dwn_plain(rn, wn, mask, g, gamma1, gamma2)
-  lib, group = _kernel_shape(rn, wn)
+  lib, _ = _kernel_shape(rn, wn)
   _check_saved(rn, wn, saved)
   num_images, regions, dim = rn.shape
   num_caps, words, _ = wn.shape
-  num_groups = -(-num_caps // group)
-  # One wave of (caption group, part) blocks; each part sums its own
-  # images, and a second launch adds the parts in a fixed order.
+  # E's [word row][region] planes per (image, caption group); the product
+  # splits its depth (images x regions) into parts, each summed into its
+  # own partial, which a third launch adds in a fixed order.
+  rows = lib.xmc_word_scores_word_rows(num_caps, words)
+  ebuf = torch.empty((num_images, rows, MAX_REGIONS), dtype=torch.float32,
+                     device=rn.device)
   sms = torch.cuda.get_device_properties(rn.device).multi_processor_count
-  parts = min(num_images, max(1, sms // num_groups))
+  parts = lib.xmc_word_scores_dwn_parts(num_images, num_caps, regions, words,
+                                        dim, sms)
   d_wn = torch.empty_like(wn)
   partial = (d_wn if parts == 1 else
              torch.empty((parts,) + tuple(wn.shape), dtype=torch.float32,
                          device=rn.device))
   status = lib.xmc_word_scores_dwn(
       rn.data_ptr(), mask.data_ptr(), g.data_ptr(), saved.data_ptr(),
-      partial.data_ptr(), d_wn.data_ptr(), num_images, num_caps, regions,
-      words, dim, parts, float(gamma1), float(gamma2),
+      ebuf.data_ptr(), partial.data_ptr(), d_wn.data_ptr(), num_images,
+      num_caps, regions, words, dim, parts, float(gamma1), float(gamma2),
       torch.cuda.current_stream(rn.device).cuda_stream)
   build.check(status, "word_scores word-gradient kernel")
   dwn.launches += 1
