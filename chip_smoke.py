@@ -22,11 +22,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    einsum heads and compares the losses;
 4. trains the flagship configuration (128 px, 2 x 56 super-batch,
    bfloat16, every contrastive head and the ResNet-50 tower) for a few
-   outer steps through ``train.train``, checks the losses are finite and
-   that kernels A (forward and backward), B and C launched during the
-   steps, and prints the step
-   time, images/s, peak device memory and the last step's checkpoint
+   outer steps through ``train.train`` on the synthetic source, through
+   the loader's worker processes and the pinned-memory prefetcher, checks
+   the losses are finite and that kernels A (forward and backward), B and
+   C launched during the steps, and prints the step time beside the input
+   stall, images/s, peak device memory and the last step's checkpoint
    save;
+4b. the real-data path: writes COCO TFRecord shards in the JAX package's
+   schema (PNG rows filtered with all five filter types in turn), a
+   full-resolution 480 x 640 train split, the same images pre-resized to
+   128 px and a small validation split; holds the data loader's host
+   helper (``csrc/host/fastio.cpp``: PNG un-filter, Pillow's bilinear
+   resize, CRC32C) against its plain numpy version bit for bit; trains
+   the flagship configuration from each train layout through
+   ``train.train`` (kernels A, B and C checked launched) and prints the
+   CPU count, the worker count, the step time, images/s, the input stall,
+   the host's ms per example to read, decode and preprocess, and peak
+   memory; then scores the full-resolution run's checkpoint against the
+   validation records with ``evaluate_continuously`` (small ``eval_num``);
 5. trains the test configuration 2 steps, then resumes a fresh run from
    the step-1 checkpoint and checks its step 2 against the first run's;
 6. scores phase 4's checkpoint with ``evaluate.evaluate_continuously``
@@ -55,6 +68,11 @@ TIMED_STEPS = 5
 KERNEL_ITERS = 20
 EVAL_NUM = 2048          # of the configuration's 30000, to fit the limit
 EVAL_AVG_NUM = 1         # of 3
+RECORDS_TRAIN = 112      # one super-batch of distinct records a layout
+RECORDS_VAL = 112
+RECORDS_EVAL_NUM = 224   # the real-data phase's eval_num
+FULL_SIZE = (480, 640)   # COCO's common image size
+HOST_SAMPLE = 24         # records timed one by one on the host
 
 # The least time of a kernel's work: the larger of its bytes (inputs read
 # once, outputs written once) over the memory rate and its operations over
@@ -462,6 +480,8 @@ def flagship_config():
   config = coco_xmc.get_config()
   config.data_source = "synthetic"
   config.num_train_steps = WARMUP_STEPS + TIMED_STEPS
+  config.grain_worker_count = min(config.grain_worker_count,
+                                  os.cpu_count() or 1)
   return config
 
 
@@ -477,7 +497,9 @@ def train_flagship(torch, records, card, workdir, config):
         f"{config.d_step_per_g_step} x {config.batch_size}, {config.dtype}, "
         f"use_pallas={config.use_pallas}, pretrained tower="
         f"{config.pretrained_image_contrastive}, "
-        f"{config.num_train_steps} steps", flush=True)
+        f"{config.num_train_steps} steps, synthetic source, "
+        f"{config.grain_worker_count} loader workers, "
+        f"{config.prefetch_batches} batches prefetched", flush=True)
   # Training never differentiates the word features (BERT inputs), so
   # kernel D is not on this path: its launches come from phase 3.
   counters = {"ntxent": ntxent.ntxent_stats, "ntxent_bwd": ntxent.ntxent_bwd,
@@ -507,17 +529,7 @@ def train_flagship(torch, records, card, workdir, config):
           f"{records[name]['launches']}")
     if records[name]["launches"] <= 0:
       fail(f"kernel {name} was not launched by the training steps")
-  secs = sorted(line["seconds"] for line in lines[WARMUP_STEPS:])
-  mean = sum(secs) / len(secs)
-  data = [line["data_seconds"] for line in lines[WARMUP_STEPS:]]
-  print(f"  step time over {len(secs)} steps after {WARMUP_STEPS} warm-up "
-        f"(drawing the synthetic super-batch and moving it to the card "
-        f"included): mean {mean * 1e3:.2f} ms, min {secs[0] * 1e3:.2f} ms, "
-        f"max {secs[-1] * 1e3:.2f} ms ({card})", flush=True)
-  print(f"  of which drawing and moving the batch: mean "
-        f"{sum(data) / len(data) * 1e3:.2f} ms", flush=True)
-  print(f"  throughput: {images_per_step / mean:.2f} img/s "
-        f"({images_per_step} images per outer step)")
+  step_summary(lines, images_per_step, card)
   print(f"  peak device memory: {peak / 2**30:.3f} GiB "
         f"(torch.cuda.max_memory_allocated)", flush=True)
   if [save["step"] for save in saves] != [config.num_train_steps]:
@@ -526,6 +538,270 @@ def train_flagship(torch, records, card, workdir, config):
   print(f"  checkpoint at step {saves[0]['step']} (outside the timed "
         f"steps): {saves[0]['seconds']:.2f} s, {saves[0]['bytes']} bytes "
         f"({saves[0]['bytes'] / 1e9:.3f} GB) ({card})", flush=True)
+
+
+def step_summary(lines, images_per_step, card):
+  """Prints the step time and the input stall over the timed steps."""
+  secs = sorted(line["seconds"] for line in lines[WARMUP_STEPS:])
+  mean = sum(secs) / len(secs)
+  stall = [line["data_seconds"] for line in lines[WARMUP_STEPS:]]
+  print(f"  step time over {len(secs)} steps after {WARMUP_STEPS} warm-up "
+        f"(from asking the prefetcher for the super-batch to the step's end "
+        f"on the card): mean {mean * 1e3:.2f} ms, min {secs[0] * 1e3:.2f} "
+        f"ms, max {secs[-1] * 1e3:.2f} ms; input stall (blocked waiting for "
+        f"the batch) mean {sum(stall) / len(stall) * 1e3:.2f} ms, max "
+        f"{max(stall) * 1e3:.2f} ms a step ({card})", flush=True)
+  print(f"  throughput: {images_per_step / mean:.2f} img/s "
+        f"({images_per_step} images per outer step)", flush=True)
+
+
+def encode_png_filtered(image):
+  """An 8-bit RGB PNG whose rows use the filter types 0-4 in turn (a
+  helper of this script, not of the package)."""
+  import struct
+  import zlib
+
+  import numpy as np
+
+  def paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+  h, w, ch = image.shape
+  x = image.reshape(h, w * ch).astype(np.int32)
+  rows = []
+  for y in range(h):
+    kind = y % 5
+    cur = x[y]
+    up = x[y - 1] if y else np.zeros_like(cur)
+    left = np.concatenate([np.zeros(ch, np.int32), cur[:-ch]])
+    upleft = np.concatenate([np.zeros(ch, np.int32), up[:-ch]])
+    pred = (0, left, up, (left + up) >> 1, paeth(left, up, upleft))[kind]
+    rows.append(bytes([kind]) + ((cur - pred) & 255).astype(np.uint8)
+                .tobytes())
+
+  def chunk(tag, data):
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data)))
+
+  return (b"\x89PNG\r\n\x1a\n"
+          + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+          + chunk(b"IDAT", zlib.compress(b"".join(rows)))
+          + chunk(b"IEND", b""))
+
+
+def fabricate_image(seed):
+  """One full-resolution image (smooth low-frequency content plus noise,
+  as natural images) and its PNGs at full size and pre-resized to 128 px,
+  as ``tools/preprocess_coco.py --store_size 128`` stores it."""
+  import numpy as np
+
+  from xmcgan_image_generation_tpu_torch.data import resize
+
+  rng = np.random.default_rng(seed)
+  h, w = FULL_SIZE
+  small = rng.integers(0, 256, (h // 16, w // 16, 3), np.uint8)
+  image = resize.resize_uint8(small, h, w).astype(np.int16)
+  image = np.clip(image + np.rint(rng.normal(0, 2, image.shape)), 0,
+                  255).astype(np.uint8)
+  return (encode_png_filtered(image),
+          encode_png_filtered(resize.resize_uint8(image, 128, 128)))
+
+
+def write_record_layouts(root):
+  """Train shards at full resolution (``full/``) and pre-resized to 128 px
+  (``pre_resized/``), each beside the same small validation split (128
+  px); four shards a train split.  Returns the two directories and the
+  first record's full-resolution PNG."""
+  import concurrent.futures
+  import multiprocessing
+
+  import numpy as np
+
+  from xmcgan_image_generation_tpu_torch.data import native
+  from xmcgan_image_generation_tpu_torch.data import records
+
+  start = time.perf_counter()
+  native.library()   # built once here, before the processes load it
+  print(f"  host helper built and loaded in {time.perf_counter() - start:.1f}"
+        f" s ({native.find_compiler()})", flush=True)
+  start = time.perf_counter()
+  ctx = multiprocessing.get_context("spawn")
+  with concurrent.futures.ProcessPoolExecutor(
+      max_workers=os.cpu_count() or 1, mp_context=ctx) as pool:
+    pngs = list(pool.map(fabricate_image,
+                         range(RECORDS_TRAIN + RECORDS_VAL)))
+  rng = np.random.default_rng(0)
+  dirs = {name: os.path.join(root, name) for name in ("full", "pre_resized")}
+  sizes = {}
+  for layout, directory in dirs.items():
+    os.makedirs(directory)
+    for split, first, count, shards in (
+        ("train", 0, RECORDS_TRAIN, 4),
+        ("validation", RECORDS_TRAIN, RECORDS_VAL, 1)):
+      writers = [records.TFRecordWriter(os.path.join(
+          directory, f"coco2014_{split}.tfrecord-{i:05d}-of-{shards:05d}"))
+          for i in range(shards)]
+      for n in range(count):
+        full, small = pngs[first + n]
+        image = full if layout == "full" and split == "train" else small
+        sizes.setdefault((layout, split), []).append(len(image))
+        writers[n % shards].write(records.build_example({
+            "image": image,
+            "image/filename": [f"{split}_{n:06d}.png".encode()],
+            "caption/embedding": rng.standard_normal(
+                5 * 17 * 768).astype(np.float32),
+            "caption/max_len": rng.integers(3, 18, (5,)).astype(np.int64),
+            "caption/text": [f"caption {n} {c}".encode() for c in range(5)],
+        }))
+      for w in writers:
+        w.close()
+  print(f"  wrote {RECORDS_TRAIN} train records in each layout and "
+        f"{RECORDS_VAL} validation records (128 px) in "
+        f"{time.perf_counter() - start:.1f} s; mean PNG bytes: full "
+        f"resolution {np.mean(sizes[('full', 'train')]):.0f}, pre-resized "
+        f"{np.mean(sizes[('pre_resized', 'train')]):.0f}", flush=True)
+  return dirs, pngs[0][0]
+
+
+def check_host_helper(full_png):
+  """The host helper against its plain numpy versions, bit for bit."""
+  import numpy as np
+
+  from xmcgan_image_generation_tpu_torch.data import png
+  from xmcgan_image_generation_tpu_torch.data import records
+  from xmcgan_image_generation_tpu_torch.data import resize
+
+  checks = {}
+  image = png.decode(full_png)
+  checks["PNG decode, 480 x 640, five filter types"] = np.array_equal(
+      image, png.decode(full_png, plain=True))
+  small = resize.resize_uint8(image, 128, 128)
+  checks["resize 480 x 640 -> 128 x 128"] = np.array_equal(
+      small, resize.resize_uint8_plain(image, 128, 128))
+  checks["zoom_crop resize 128 -> 144"] = np.array_equal(
+      resize.resize_uint8(small, 144, 144),
+      resize.resize_uint8_plain(small, 144, 144))
+  checks["CRC32C of the PNG"] = (records.crc32c(full_png[:200_000])
+                                 == records.crc32c_plain(full_png[:200_000]))
+  for name, ok in checks.items():
+    print(f"  host helper against its plain version, {name}: "
+          f"{'bit-identical' if ok else 'DIFFERS'}", flush=True)
+    if not ok:
+      fail(f"host helper: {name} differs from its plain version")
+
+
+def host_ms_per_example(config):
+  """One core's ms per example, in this process: read (pread and parse
+  the record), decode (the PNG) and preprocess (the loader's transform
+  less its decode: resize, flip, augment, caption, z)."""
+  import numpy as np
+
+  from xmcgan_image_generation_tpu_torch.data import pipeline
+  from xmcgan_image_generation_tpu_torch.data import png
+
+  loader = pipeline.create_datasets(config, seed=config.seed)[0]
+  read = decode = transform = 0.0
+  for i in range(HOST_SAMPLE):
+    t0 = time.perf_counter()
+    features = loader.source[i % len(loader.source)]
+    t1 = time.perf_counter()
+    png.decode(features["image"])
+    t2 = time.perf_counter()
+    loader.transform(features, np.random.default_rng(i))
+    t3 = time.perf_counter()
+    read, decode, transform = read + t1 - t0, decode + t2 - t1, transform + (
+        t3 - t2)
+  n = HOST_SAMPLE / 1e3
+  return read / n, decode / n, (transform - decode) / n
+
+
+def train_from_records(torch, card, config, label, workdir):
+  """Trains ``config`` (its records in ``config.data_dir``) in
+  ``workdir`` through train.train; checks the losses and that kernels A,
+  B and C launched; prints the step time, stall and host costs."""
+  from xmcgan_image_generation_tpu_torch import train as train_lib
+  from xmcgan_image_generation_tpu_torch.ops.cuda import ntxent
+  from xmcgan_image_generation_tpu_torch.ops.cuda import word_scores as ws
+
+  images_per_step = config.batch_size * config.d_step_per_g_step
+  read, decode, prep = host_ms_per_example(config)
+  print(f"  {label}: os.cpu_count() = {os.cpu_count()}, "
+        f"{config.grain_worker_count} loader workers, "
+        f"{config.prefetch_batches} batches prefetched; host ms per "
+        f"example on one core: read {read:.2f}, decode {decode:.2f}, "
+        f"preprocess {prep:.2f} (sum {read + decode + prep:.2f}: "
+        f"{(read + decode + prep) * images_per_step / 1e3:.2f} core-seconds "
+        f"a super-batch of {images_per_step})", flush=True)
+  counters = {"ntxent": ntxent.ntxent_stats, "ntxent_bwd": ntxent.ntxent_bwd,
+              "word_scores_fwd": ws.scores, "word_scores_drn": ws.drn}
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  for fn in counters.values():
+    fn.launches = 0
+  train_lib.train(config, workdir, torch.device("cuda"))
+  launches = {name: fn.launches for name, fn in counters.items()}
+  peak = torch.cuda.max_memory_allocated()
+  with open(os.path.join(workdir, "metrics.jsonl")) as f:
+    lines = [json.loads(line) for line in f]
+  if len(lines) != config.num_train_steps:
+    fail(f"{label}: {len(lines)} metric lines for {config.num_train_steps} "
+         f"steps")
+  for line in lines:
+    for key, value in line.items():
+      if not math.isfinite(value):
+        fail(f"{label}, step {line['step']}: {key} = {value}")
+  print(f"  {label}: launches during the steps {json.dumps(launches)}",
+        flush=True)
+  for name, count in launches.items():
+    if count <= 0:
+      fail(f"{label}: kernel {name} was not launched by the training steps")
+  step_summary(lines, images_per_step, card)
+  print(f"  peak device memory: {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated)", flush=True)
+
+
+def real_data_phase(torch, card, dev):
+  """Phase 4b: the flagship configuration trained from COCO records in
+  both layouts, and scored against the validation records."""
+  import csv
+
+  from xmcgan_image_generation_tpu_torch import evaluate
+
+  start = time.perf_counter()
+  print("phase 4b: the real-data path (TFRecords, PNG decode and resize on "
+        "the host, loader workers, pinned-memory prefetcher)", flush=True)
+  with tempfile.TemporaryDirectory() as root:
+    dirs, full_png = write_record_layouts(root)
+    check_host_helper(full_png)
+    workdirs = {}
+    for layout in ("full", "pre_resized"):
+      config = flagship_config()
+      config.update(data_source="tfrecord", data_dir=dirs[layout],
+                    coco_version="2014", eval_every_steps=10**9)
+      workdirs[layout] = os.path.join(root, f"work_{layout}")
+      size = ("480 x 640 PNGs" if layout == "full"
+              else "128 px PNGs (pre-resized)")
+      train_from_records(torch, card, config, f"{layout} ({size})",
+                         workdirs[layout])
+    config.update(data_dir=dirs["full"], eval_num=RECORDS_EVAL_NUM,
+                  eval_avg_num=1)
+    t0 = time.perf_counter()
+    metric = evaluate.evaluate_continuously(config, workdirs["full"], dev,
+                                            timeout=60)
+    with open(os.path.join(workdirs["full"], "checkpoints",
+                           "scores.csv")) as f:
+      rows = list(csv.DictReader(f))
+    if len(rows) != 1 or not all(math.isfinite(float(v))
+                                 for v in rows[0].values()):
+      fail(f"real-data evaluation: scores.csv rows {rows}")
+    print(f"  evaluate_continuously on the full-resolution run's checkpoint "
+          f"against the validation records: eval_num {RECORDS_EVAL_NUM}, "
+          f"{metric.last_images} generated images, "
+          f"{time.perf_counter() - t0:.2f} s; scores.csv row "
+          f"{json.dumps(rows[0])}", flush=True)
+  print(f"  phase 4b took {time.perf_counter() - start:.1f} s", flush=True)
 
 
 def check_resume(torch, dev):
@@ -632,7 +908,8 @@ def evaluate_flagship(torch, card, workdir, config, dev):
 
 def eval_breakdown(torch, config, dev, workdir, metric):
   """Phase 6b: one batch of the generated pass, part by part, on the
-  checkpoint phase 6 scored: drawing and moving the batch (host clock),
+  checkpoint phase 6 scored: taking the batch from the prefetcher (host
+  clock: the wait when the loader's workers fall behind),
   sampling with both weight sets and one Inception call (CUDA events), and
   the host's statistics of one feature batch (host clock, device to host
   copy included).  Inception again with cuDNN allowed TF32, which the
@@ -646,12 +923,11 @@ def eval_breakdown(torch, config, dev, workdir, metric):
   from xmcgan_image_generation_tpu_torch.evaluate import eval_stream
   from xmcgan_image_generation_tpu_torch.utils import checkpoint
   from xmcgan_image_generation_tpu_torch.utils import fid
-  from xmcgan_image_generation_tpu_torch.utils.bridge import to_tensors
 
   manager = checkpoint.CheckpointManager(checkpoint.checkpoints_dir(workdir))
   state = manager.restore(manager.latest_step(),
                           create_train_state(config, dev, seed=config.seed))
-  stream = eval_stream(config)
+  stream = eval_stream(config, dev)
   iters = 5
 
   def host_ms(fn):
@@ -663,8 +939,9 @@ def eval_breakdown(torch, config, dev, workdir, metric):
     torch.cuda.synchronize()
     return (time.perf_counter() - start) / iters * 1e3
 
-  draw = host_ms(lambda: to_tensors(next(stream), dev))
-  batch = to_tensors(next(stream), dev)
+  draw = host_ms(lambda: next(stream))
+  batch = next(stream)
+  stream.close()
   sample = time_ms(lambda: generate_batch(state, batch, config), iters)
   images = generate_batch(state, batch, config)["generated_image"]
   features = metric._inception  # the service's own feature function
@@ -678,8 +955,8 @@ def eval_breakdown(torch, config, dev, workdir, metric):
   torch.backends.cudnn.allow_tf32 = False
   n = images.shape[0]
   per_batch = draw + sample + 2 * inception + 2 * host
-  print(f"phase 6b: one batch of {n} of the generated pass, ms: drawing "
-        f"and moving it {draw:.2f}; sampling, normal and EMA weights "
+  print(f"phase 6b: one batch of {n} of the generated pass, ms: taking "
+        f"it from the prefetcher {draw:.2f}; sampling, normal and EMA weights "
         f"{sample:.2f}; Inception (resize, InceptionV3 at 299 px in float32, "
         f"softmax) {inception:.2f} per weight set ({inception_tf32:.2f} with "
         f"cuDNN TF32); host statistics {host:.2f} per weight set; sum "
@@ -722,7 +999,6 @@ def main() -> None:
   for line in result.log.splitlines():
     if "ptxas" in line or "spill" in line:
       print(f"  {line.strip()}")
-
   src = "xmcgan_image_generation_tpu_torch/csrc/"
   pallas = "xmcgan_image_generation_tpu/ops/pallas/"
   records = {
@@ -754,6 +1030,7 @@ def main() -> None:
   config = flagship_config()
   with tempfile.TemporaryDirectory() as workdir:
     train_flagship(torch, records, card, workdir, config)
+    real_data_phase(torch, card, dev)
     check_resume(torch, dev)
     evaluate_flagship(torch, card, workdir, config, dev)
 

@@ -1,7 +1,7 @@
 """The port's checkpoints and resume, on the CPU at the test config.
 
-A checkpoint holds the whole train state and the data stream's position:
-a round trip restores every tensor and the stream exactly, and a run that
+A checkpoint holds the whole train state and the data loader's position:
+a round trip restores every tensor and the loader exactly, and a run that
 stops after step 1 and resumes from its checkpoint takes a step 2 that is
 bit-identical to an uninterrupted run's (PyTorch's CPU kernels are
 deterministic for a fixed thread count).
@@ -10,13 +10,11 @@ deterministic for a fixed thread count).
 import json
 import os
 
-import numpy as np
 import pytest
 import torch
 
 from xmcgan_image_generation_tpu_torch import train as train_lib
 from xmcgan_image_generation_tpu_torch.configs import coco_xmc
-from xmcgan_image_generation_tpu_torch.data import synthetic
 from xmcgan_image_generation_tpu_torch.engine.state import create_train_state
 from xmcgan_image_generation_tpu_torch.utils import checkpoint
 from xmcgan_image_generation_tpu_torch.utils import task_manager
@@ -59,23 +57,28 @@ def _losses(workdir):
 
 def test_round_trip_is_exact(tmp_path):
   """One trained step (so the Adam slots are filled), saved, restored into
-  a state built from another seed, and the data stream with it."""
+  a state built from another seed, and the loader's position with it."""
   config = _config(1)
-  run = train_lib.setup(config, torch.device("cpu"))
+  run, _ = train_lib.setup(config, torch.device("cpu"))
   train_lib.timed_step(run, config, torch.device("cpu"))
   state, _, stream = run
   manager = checkpoint.CheckpointManager(str(tmp_path))
   seconds, size = manager.save(1, state, stream)
   assert seconds >= 0 and size == os.path.getsize(manager.path(1))
   following = next(stream)
+  stream.close()
 
   fresh = create_train_state(config, "cpu", seed=config.seed + 7)
-  fresh_stream = synthetic.super_batches(config, seed=config.seed)
+  (_, _, fresh_stream), _ = train_lib.setup(config, torch.device("cpu"))
   assert manager.restore_or_initialize(fresh, fresh_stream) is fresh
   _assert_same_state(fresh, state)
-  assert fresh_stream.count == 1
-  for key, value in next(fresh_stream).items():
-    np.testing.assert_array_equal(value, following[key], err_msg=key)
+  assert fresh_stream.get_state()["position"] == 1
+  got = next(fresh_stream)
+  fresh_stream.close()
+  assert set(got) == set(following)
+  for key, value in got.items():
+    torch.testing.assert_close(value, following[key], rtol=0, atol=0,
+                               msg=key)
 
 
 def test_resume_is_bit_identical(tmp_path):
@@ -95,7 +98,7 @@ def test_resume_is_bit_identical(tmp_path):
 
 def test_max_to_keep(tmp_path):
   config = _config(1)
-  state, _, stream = train_lib.setup(config, torch.device("cpu"))
+  (state, _, stream), _ = train_lib.setup(config, torch.device("cpu"))
   manager = checkpoint.CheckpointManager(str(tmp_path), max_to_keep=2)
   assert manager.latest_step() is None
   for step in (1, 2, 3, 5):
@@ -108,9 +111,14 @@ def test_max_to_keep(tmp_path):
 
 
 def test_stream_rejects_another_seed():
+  """The loader's position is tied to its loader: a loader of another seed
+  refuses it."""
   config = _config(1)
-  stream = synthetic.SyntheticStream(config, seed=1)
+  (_, _, stream), _ = train_lib.setup(config, torch.device("cpu"))
   next(stream)
-  other = synthetic.SyntheticStream(config, seed=2)
+  state = stream.get_state()
+  stream.close()
+  config.seed += 1
+  (_, _, other), _ = train_lib.setup(config, torch.device("cpu"))
   with pytest.raises(ValueError, match="seed"):
-    other.set_state(stream.get_state())
+    other.set_state(state)

@@ -2,8 +2,10 @@
 card, and imports nothing of the JAX package: in a fresh interpreter
 where importing ``jax``, ``flax``, ``optax``, ``ml_collections`` or
 ``xmcgan_image_generation_tpu`` fails, import every module of the port and
-``chip_smoke.py``, and take one tiny CPU step through ``train.train``.
-And ``chip_smoke.py`` refuses to run without a card."""
+``chip_smoke.py``, write a two-shard TFRecord dataset (and a validation
+shard) with the port's writer, and take one tiny CPU step through
+``train.train`` on it, the host helper and the PNG decoder included.  And
+``chip_smoke.py`` refuses to run without a card."""
 
 import json
 import os
@@ -31,10 +33,29 @@ _SCRIPT = textwrap.dedent("""
       importlib.import_module(name)
     spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[2])
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    import numpy as np
     from xmcgan_image_generation_tpu_torch import train
     from xmcgan_image_generation_tpu_torch.configs import coco_xmc
+    from xmcgan_image_generation_tpu_torch.data import records
+    from xmcgan_image_generation_tpu_torch.utils import image_utils
+    data_dir = os.path.join(sys.argv[1], "data")
+    os.makedirs(data_dir)
+    rng = np.random.default_rng(0)
+    for name, shards in (("train", 2), ("validation", 1)):
+      for s in range(shards):
+        path = os.path.join(data_dir, f"coco2014_{name}.tfrecord-{s}")
+        with records.TFRecordWriter(path) as w:
+          for i in range(3):
+            image = rng.integers(0, 256, (40 + i, 36, 3), dtype=np.uint8)
+            w.write(records.build_example({
+                "image": image_utils.encode_png(image),
+                "caption/embedding": rng.standard_normal(
+                    5 * 17 * 768).astype(np.float32),
+                "caption/max_len": np.array([3, 5, 17, 4, 9], np.int64),
+                "caption/text": [b"a caption"] * 5}))
     config = coco_xmc.get_test_config()
-    config.num_train_steps = 1
+    config.update(num_train_steps=1, data_source="tfrecord",
+                  data_dir=data_dir)
     config.scale_fused_convs = True
     config.use_pallas = True
     state = train.train(config, sys.argv[1], "cpu")
@@ -64,7 +85,9 @@ def test_port_trains_without_jax(tmp_path):
   # Every module of the port was imported, the new path's among them.
   for name in ("evaluate", "generate", "main", "models.inception_v3",
                "utils.checkpoint", "utils.eval_metrics", "utils.fid",
-               "utils.task_manager", "ops.cuda.word_scores"):
+               "utils.task_manager", "ops.cuda.word_scores",
+               "data.pipeline", "data.prefetch", "data.png", "data.resize",
+               "data.records", "data.sources", "utils.preemption"):
     assert f"xmcgan_image_generation_tpu_torch.{name}" in result["modules"]
   lines = (tmp_path / "metrics.jsonl").read_text().splitlines()
   record = json.loads(lines[-1])

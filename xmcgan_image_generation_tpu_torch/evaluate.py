@@ -6,10 +6,10 @@ training workdir's checkpoints, scores each (FID and IS with the normal
 and EMA weights, mean and std over ``eval_avg_num`` repeats), appends one
 row per checkpoint to ``checkpoints/scores.csv`` and the scalars to
 ``metrics.jsonl``, and returns on timeout or once ``TRAIN_DONE`` is there
-and every checkpoint is scored.  The images come from the synthetic
-source (the real-data pipeline is not ported yet): the real pool is the
-first ``eval_num`` images of the evaluation stream, seeded with
-``config.seed``, whose batches also give the generator its conditions.
+and every checkpoint is scored.  The batches come from the eval loader of
+`data.pipeline.create_datasets` (the validation records, or the synthetic
+source): the real pool is its first ``eval_num`` images, and its batches
+also give the generator its conditions, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ import logging
 
 import torch
 
-from xmcgan_image_generation_tpu_torch.data import synthetic
+from xmcgan_image_generation_tpu_torch.data import pipeline
+from xmcgan_image_generation_tpu_torch.data.prefetch import DevicePrefetcher
 from xmcgan_image_generation_tpu_torch.engine.state import create_train_state
 from xmcgan_image_generation_tpu_torch.utils.checkpoint import (
     CheckpointManager,
@@ -33,13 +34,17 @@ from xmcgan_image_generation_tpu_torch.utils.task_manager import (
 log = logging.getLogger("xmcgan_torch")
 
 
-def eval_stream(config) -> synthetic.SyntheticStream:
-  """Batches of ``eval_batch_size`` examples for evaluation."""
-  if config.data_source != "synthetic":
-    raise NotImplementedError(
-        f"data_source={config.data_source!r}: only 'synthetic' is ported")
-  return synthetic.SyntheticStream(config, seed=config.seed,
-                                   n=config.eval_batch_size)
+def eval_stream(config, device):
+  """The eval loader's batches of ``eval_batch_size`` examples, moved to
+  ``device`` ahead by a `DevicePrefetcher`, or numpy batches when
+  ``return_text`` asks for the captions' text, which stays on the host.
+  Close it when done."""
+  _, eval_loader, _ = pipeline.create_datasets(config, seed=config.seed)
+  batches = iter(eval_loader)
+  if config.return_text:
+    return batches
+  return DevicePrefetcher(batches, device,
+                          size=config.get("prefetch_batches", 2))
 
 
 def evaluate_continuously(config, workdir: str, device="cuda",
@@ -51,7 +56,16 @@ def evaluate_continuously(config, workdir: str, device="cuda",
   if device.type == "cuda" and not torch.cuda.is_available():
     raise RuntimeError("no CUDA device; pass device='cpu' to evaluate on "
                        "the CPU")
-  eval_metric = EvalMetric(eval_stream(config), config, device)
+  batches = eval_stream(config, device)
+  try:
+    return _serve(config, workdir, device, timeout, batches)
+  finally:
+    batches.close()
+
+
+def _serve(config, workdir: str, device: torch.device, timeout: float,
+           batches) -> EvalMetric:
+  eval_metric = EvalMetric(batches, config, device)
   log.info("Real-image statistics took %.2f s", eval_metric.real_seconds)
   ckpt_dir = checkpoints_dir(workdir)
   task_manager = TaskManagerWithCsvResults(ckpt_dir)

@@ -2,8 +2,10 @@
 ``generate.py``, ``--mode=generate``).
 
 Restores the latest (or a given) checkpoint of a training workdir, runs
-the generator with its normal and EMA weights on batches of the
-evaluation stream, and writes PNG grids to ``{workdir}/samples``.
+the generator with its normal and EMA weights on batches of the eval
+loader, and writes PNG grids to ``{workdir}/samples``.  As in the JAX
+package, the first eval batch is passed over (the JAX package builds its
+models from it) and the grids show the batches after it.
 """
 
 from __future__ import annotations
@@ -13,12 +15,12 @@ from typing import Optional
 
 import torch
 
+from xmcgan_image_generation_tpu_torch.data.prefetch import numeric_tensors
 from xmcgan_image_generation_tpu_torch.engine.sampling import generate_batch
 from xmcgan_image_generation_tpu_torch.engine.state import create_train_state
 from xmcgan_image_generation_tpu_torch.evaluate import eval_stream
 from xmcgan_image_generation_tpu_torch.utils import fileio
 from xmcgan_image_generation_tpu_torch.utils import image_utils
-from xmcgan_image_generation_tpu_torch.utils.bridge import to_tensors
 from xmcgan_image_generation_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     checkpoints_dir,
@@ -41,13 +43,19 @@ def generate(config, workdir: str, device="cuda", step: Optional[int] = None,
   state = ckpt.restore(step, create_train_state(config, device,
                                                 seed=config.seed))
   log.info("Generating from checkpoint step %d", step)
-  stream = eval_stream(config)
   out_dir = fileio.join(workdir, "samples")
   fileio.makedirs(out_dir)
-  for i in range(num_batches):
-    out = generate_batch(state, to_tensors(next(stream), device), config)
-    for name in ("generated_image", "ema_generated_image", "image"):
-      path = fileio.join(out_dir, f"step{step:08d}_batch{i}_{name}.png")
-      image_utils.save_image(out[name].cpu().numpy(), path, config.show_num)
+  batches = eval_stream(config, device)
+  try:
+    next(batches)
+    for i in range(num_batches):
+      out = generate_batch(state, numeric_tensors(next(batches), device),
+                           config)
+      for name in ("generated_image", "ema_generated_image", "image"):
+        path = fileio.join(out_dir, f"step{step:08d}_batch{i}_{name}.png")
+        image_utils.save_image(out[name].cpu().numpy(), path,
+                               config.show_num)
+  finally:
+    batches.close()
   log.info("Wrote samples to %s", out_dir)
   return out_dir

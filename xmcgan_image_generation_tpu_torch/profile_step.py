@@ -3,8 +3,9 @@
 ``python -m xmcgan_image_generation_tpu_torch.profile_step``
 
 TF32 is off for matmuls and convolutions, as in ``chip_smoke.py``.  Each
-step is `train.timed_step`, the loop of `train.train`: draw a synthetic
-super-batch, move it to the card, take the outer step, synchronize.
+step is `train.timed_step`, the loop of `train.train`: take the next
+super-batch of the synthetic source from the prefetcher (the loader's
+workers make it while the card runs), take the outer step, synchronize.
 
 1. Sets up two flagship runs (128 px, 2 x 56, bfloat16, synthetic data
    from the config's seed): one with ``use_pallas`` on (the CUDA
@@ -60,7 +61,7 @@ def _arm(use_pallas: bool, device):
   config = coco_xmc.get_config()
   config.data_source = "synthetic"
   config.use_pallas = use_pallas
-  run = train_lib.setup(config, device)
+  run, _ = train_lib.setup(config, device)
 
   def step() -> float:
     return train_lib.timed_step(run, config, device)[1]

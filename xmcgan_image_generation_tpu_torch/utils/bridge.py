@@ -151,6 +151,9 @@ def load_adam_state(opt: torch.optim.Optimizer, module: nn.Module,
         "exp_avg": mu_t[name].to(p.device).clone(),
         "exp_avg_sq": nu_t[name].to(p.device).clone(),
     }
+  for group in opt.param_groups:
+    if "lr_count" in group:   # a schedule's count (engine.state)
+      group["lr_count"] = count
 
 
 def adam_state_to_jax(opt: torch.optim.Optimizer, module: nn.Module

@@ -4,8 +4,11 @@ package's ``utils/checkpoint.py``).
 A checkpoint is one file, ``{directory}/checkpoint_{step}.pt``, written
 with ``torch.save`` to a temporary file that is then renamed over it, so
 a listed step is always complete.  It holds G, D (with the batch
-statistics and the spectral-norm ``u0``), the EMA, both Adam states, the
-step and the data stream's state.  Restoring into a state built by
+statistics and the spectral-norm ``u0``), the EMA, both Adam states (with
+a learning-rate schedule's update count, ``lr_count``), the step and the
+data loader's state: the position of the next batch that the training
+loop has not taken (the prefetcher's batches in flight are not counted
+as taken).  Restoring into a state built by
 ``create_train_state`` from the same configuration resumes exactly.  The
 newest ``max_to_keep`` checkpoints are kept.
 """

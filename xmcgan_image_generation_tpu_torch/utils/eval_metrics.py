@@ -20,13 +20,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from xmcgan_image_generation_tpu_torch.data.prefetch import numeric_tensors
 from xmcgan_image_generation_tpu_torch.engine.sampling import generate_batch
 from xmcgan_image_generation_tpu_torch.engine.state import TrainState
 from xmcgan_image_generation_tpu_torch.models.inception_v3 import InceptionV3
 from xmcgan_image_generation_tpu_torch.ops.images import image_to_float
 from xmcgan_image_generation_tpu_torch.utils import fid as fid_lib
 from xmcgan_image_generation_tpu_torch.utils import inception_weights
-from xmcgan_image_generation_tpu_torch.utils.bridge import to_tensors
 
 log = logging.getLogger("xmcgan_torch")
 
@@ -65,8 +65,9 @@ def make_inception_fn(ckpt_path: Optional[str] = None,
 class EvalMetric:
   """FID and IS of generator checkpoints against a pool of real images.
 
-  ``eval_iter`` yields numpy batches of ``eval_batch_size`` examples (the
-  loader's keys); the real pool is its first ``eval_num`` images.
+  ``eval_iter`` yields batches of ``eval_batch_size`` examples (the
+  loader's keys), numpy or tensors on the device; the real pool is its
+  first ``eval_num`` images.
   Host-clock timings: ``real_seconds`` of the real statistics; of the last
   `calculate_inception_fid`, ``last_seconds`` in all and
   ``last_generate_seconds`` of those spent generating the images and
@@ -92,9 +93,7 @@ class EvalMetric:
     self.real_seconds = time.perf_counter() - start
 
   def _next_batch(self) -> Dict[str, torch.Tensor]:
-    batch = {k: v for k, v in next(self.eval_iter).items()
-             if np.asarray(v).dtype.kind in "fiub"}
-    return to_tensors(batch, self.device)
+    return numeric_tensors(next(self.eval_iter), self.device)
 
   def _compute_real_statistics(self) -> Tuple[np.ndarray, np.ndarray]:
     """The real images' Inception pool statistics, computed once."""

@@ -1,11 +1,12 @@
 """Local-path file helpers (the part of the JAX package's
-``utils/fileio.py`` that the port's checkpoints, services and writers
-call; no remote filesystems)."""
+``utils/fileio.py`` that the port's checkpoints, services, writers and
+preemption guard call; no remote filesystems)."""
 
 from __future__ import annotations
 
 import os
 import tempfile
+import threading
 from typing import List
 
 join = os.path.join
@@ -47,3 +48,41 @@ def atomic_write(path: str, data) -> None:
 def append_text(path: str, text: str) -> None:
   with open(path, "a") as f:
     f.write(text)
+
+
+def read_text(path: str) -> str:
+  with open(path, "r") as f:
+    return f.read()
+
+
+def remove(path: str) -> None:
+  os.remove(path)
+
+
+def create_exclusive(path: str, data) -> bool:
+  """Creates ``path`` holding ``data`` if it does not exist, atomically:
+  True when this caller created it, False when it existed.  The content
+  is written to a temporary file first and linked to ``path`` (the link
+  fails if ``path`` exists), so a reader never sees a part of it."""
+  if isinstance(data, str):
+    data = data.encode("utf-8")
+  # Unique per process and thread: racing threads share the pid.
+  tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+  try:
+    os.remove(tmp)  # left by a crashed attempt of this process and thread
+  except OSError:
+    pass
+  fd = os.open(tmp, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+  try:
+    with os.fdopen(fd, "wb") as f:
+      f.write(data)
+    try:
+      os.link(tmp, path)
+    except FileExistsError:
+      return False
+    return True
+  finally:
+    try:
+      os.remove(tmp)
+    except OSError:
+      pass
