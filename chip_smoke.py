@@ -20,6 +20,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    words (kernels B, C and D) and checks that each launched; then takes
    one small float32 step (test config) with the kernels and with the
    einsum heads and compares the losses;
+3c. holds kernels A (forward and backward), B and C against their plain
+   versions at the 256 px path's microbatch (I = C = 128; A's variant for
+   B > 64), times them and states their bounds;
 4. trains the flagship configuration (128 px, 2 x 56 super-batch,
    bfloat16, every contrastive head and the ResNet-50 tower) for a few
    outer steps through ``train.train`` on the synthetic source, through
@@ -28,6 +31,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    C launched during the steps, and prints the step time beside the input
    stall, images/s, peak device memory and the last step's checkpoint
    save;
+4c. trains ``configs/coco_xmc_256.py`` at full width (256 px, 2 x 256,
+   bfloat16, remat of the 256 px blocks) through ``train.train`` with
+   ``grad_accum_steps=2`` (4 if 2 does not fit, the reason printed) for 2
+   warm-up and 3 timed steps, checks the losses are finite and that A, A
+   backward, B and C launched k times as often a step as in phase 4, and
+   prints the step time, images/s, peak memory and the checkpoint;
+4d. one critic update at 256 px on a microbatch of 8 (float32,
+   deterministic cuDNN) with remat off, "full" and "conv" from the same
+   weights: D's gradients agree and each ``u0`` advanced exactly once;
 4b. the real-data path: writes COCO TFRecord shards in the JAX package's
    schema (PNG rows filtered with all five filter types in turn), a
    full-resolution 480 x 640 train split, the same images pre-resized to
@@ -49,12 +61,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 7. prints the kernel records as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
-Any failed phase exits non-zero before the last line.  Without a CUDA
-device, or outside a checkout, it exits non-zero at once.
+Each phase prints its seconds.  Any failed phase exits non-zero before
+the last line.  Without a CUDA device, or outside a checkout, it exits
+non-zero at once.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import os
@@ -65,6 +79,8 @@ import time
 
 WARMUP_STEPS = 2
 TIMED_STEPS = 5
+TIMED_STEPS_256 = 3      # the 256 px phase's timed steps
+MICROBATCH_256 = 128     # the 256 px path's microbatch at grad_accum_steps=2
 KERNEL_ITERS = 20
 EVAL_NUM = 2048          # of the configuration's 30000, to fit the limit
 EVAL_AVG_NUM = 1         # of 3
@@ -97,6 +113,14 @@ def card_line() -> str:
   if proc.returncode != 0 or not proc.stdout.strip():
     fail(f"nvidia-smi: {proc.stderr.strip()}")
   return proc.stdout.strip().splitlines()[0]
+
+
+def loss_lines(workdir):
+  """The lines of ``workdir/metrics.jsonl`` that hold the losses (the
+  others hold ``steps_per_sec``)."""
+  with open(os.path.join(workdir, "metrics.jsonl")) as f:
+    lines = [json.loads(line) for line in f]
+  return [line for line in lines if "d_loss" in line]
 
 
 def time_ms(fn, iters: int = KERNEL_ITERS) -> float:
@@ -459,8 +483,7 @@ def check_small_step(torch):
                   use_pallas=use_pallas, batch_size=8)
     with tempfile.TemporaryDirectory() as workdir:
       train_lib.train(config, workdir, torch.device("cuda"))
-      with open(os.path.join(workdir, "metrics.jsonl")) as f:
-        losses[use_pallas] = json.loads(f.readline())
+      losses[use_pallas] = loss_lines(workdir)[0]
   worst = 0.0
   for key in ("d_loss", "g_loss", "c_loss_d", "c_loss_g"):
     got, want = losses[True][key], losses[False][key]
@@ -474,12 +497,310 @@ def check_small_step(torch):
     fail("the kernel step disagrees with the einsum step at the test config")
 
 
+def check_kernels_microbatch(torch, records, batch):
+  """Phase 3c: kernels A (forward and backward), B and C against their
+  plain versions at the 256 px path's microbatch (I = C = ``batch``; A's
+  variant for B > 64), timed as at the flagship shapes, with their
+  bounds; kept in each record under ``at_batch_<batch>``."""
+  from xmcgan_image_generation_tpu_torch.ops.attention import padding_mask
+  from xmcgan_image_generation_tpu_torch.ops.contrastive import l2_normalize
+  from xmcgan_image_generation_tpu_torch.ops.cuda import ntxent
+  from xmcgan_image_generation_tpu_torch.ops.cuda import word_scores as ws
+
+  dev = torch.device("cuda")
+  gen = torch.Generator(device=dev).manual_seed(1)
+  pool_dim, regions, words, dim = 1536, 256, 17, 768
+  g1 = g2 = 5.0
+  out = {name: {} for name in ("ntxent", "ntxent_bwd", "word_scores_fwd",
+                               "word_scores_drn")}
+
+  def check(name, label, err, tol):
+    print(f"  {name} [{label}], I = C = {batch}: max|kernel - plain| = "
+          f"{err:.3e} (tolerance {tol:.1e}) {'ok' if err <= tol else 'FAIL'}",
+          flush=True)
+    if err > tol:
+      fail(f"{name} [{label}] disagrees with its plain version at {batch}")
+
+  g_out = torch.tensor([1.7, 0.3, 0.2], device=dev)
+  for dtype in (torch.float32, torch.bfloat16):
+    a = torch.randn(batch, pool_dim, device=dev, generator=gen).abs()
+    b = torch.randn(batch, pool_dim, device=dev, generator=gen)
+    a, b = a.to(dtype), b.to(dtype)
+    record = torch.empty(ntxent.record_floats(batch), device=dev)
+    err = float((ntxent.ntxent_stats(a, b, 0.1, record)
+                 - ntxent.ntxent_plain(a, b, 0.1)).abs().max())
+    check("ntxent", str(dtype), err, 2e-4)
+    d_got = ntxent.ntxent_bwd(a, b, record, g_out, 0.1)
+    d_want = ntxent.ntxent_bwd_plain(a, b, g_out[0], 0.1)
+    d_err = max(float((x.float() - y.float()).abs().max())
+                for x, y in zip(d_got, d_want))
+    scale = max(float(y.float().abs().max()) for y in d_want)
+    # As at the flagship shapes: f32 summation order; bf16 one ulp.
+    check("ntxent_bwd", str(dtype), d_err,
+          (1e-4 if dtype == torch.float32 else 8e-3) * scale)
+    if dtype == torch.float32:
+      out["ntxent"]["max_abs_err"] = err
+      out["ntxent_bwd"]["max_abs_err"] = d_err
+  out["ntxent"]["ms"] = time_ms(lambda: ntxent.ntxent_stats(a, b, 0.1,
+                                                            record))
+  out["ntxent"]["plain_ms"] = time_ms(lambda: ntxent.ntxent_plain(a, b, 0.1))
+  out["ntxent_bwd"]["ms"] = time_ms(
+      lambda: ntxent.ntxent_bwd(a, b, record, g_out, 0.1))
+  out["ntxent_bwd"]["plain_ms"] = time_ms(
+      lambda: ntxent.ntxent_bwd_plain(a, b, g_out[0], 0.1))
+  record_bytes = 4 * ntxent.record_floats(batch)
+  set_bound(out["ntxent"], 2 * 2 * batch * pool_dim + 12 + record_bytes,
+            2 * batch * batch * pool_dim + 6 * batch * pool_dim, "bfloat16")
+  set_bound(out["ntxent_bwd"], 4 * 2 * batch * pool_dim + record_bytes + 4,
+            4 * batch * batch * pool_dim + 8 * batch * pool_dim, "bfloat16")
+
+  max_len = torch.randint(3, words + 1, (batch, 1), device=dev,
+                          generator=gen)
+  mask = padding_mask(max_len.float(), words).contiguous()
+  word = torch.randn(batch, words, dim, device=dev, generator=gen)
+  wn = l2_normalize(word).contiguous()
+  g = torch.randn(batch, batch, device=dev, generator=gen)
+  for kind in ("random", "peaked"):
+    if kind == "random":
+      region = torch.randn(batch, regions, dim, device=dev, generator=gen)
+    else:
+      pick = (torch.rand(batch, regions, device=dev, generator=gen)
+              * max_len).long()
+      region = 3 * torch.gather(word, 1, pick[..., None].expand(
+          -1, -1, dim)) + 0.5 * torch.randn(batch, regions, dim, device=dev,
+                                            generator=gen)
+    rn = l2_normalize(region).contiguous()
+    saved = ws.new_saved(rn, wn)
+    err = float((ws.scores(rn, wn, mask, g1, g2, saved)
+                 - ws.scores_plain(rn, wn, mask, g1, g2)).abs().max())
+    check("word_scores_fwd", f"{kind}, float32", err, 1e-4)
+    d_got = ws.drn(rn, wn, mask, g, saved, g1, g2)
+    d_again = ws.drn(rn, wn, mask, g, saved, g1, g2)
+    d_want = ws.drn_plain(rn, wn, mask, g, g1, g2)
+    d_err = float((d_got - d_want).abs().max())
+    check("word_scores_drn", f"{kind}, float32", d_err,
+          1e-4 * float(d_want.abs().max()))
+    if not torch.equal(d_got, d_again):
+      fail(f"two word_scores_drn calls differ at I = C = {batch}")
+    for name, e in (("word_scores_fwd", err), ("word_scores_drn", d_err)):
+      out[name]["max_abs_err"] = max(out[name].get("max_abs_err", 0.0), e)
+  x = rn.clone().requires_grad_()
+  s_plain = ws.scores_plain(x, wn, mask, g1, g2)
+  out["word_scores_fwd"]["ms"] = time_ms(
+      lambda: ws.scores(rn, wn, mask, g1, g2, saved))
+  out["word_scores_fwd"]["plain_ms"] = time_ms(
+      lambda: ws.scores_plain(rn, wn, mask, g1, g2))
+  out["word_scores_drn"]["ms"] = time_ms(
+      lambda: ws.drn(rn, wn, mask, g, saved, g1, g2))
+  out["word_scores_drn"]["plain_ms"] = time_ms(
+      lambda: torch.autograd.grad(s_plain, x, g.t(), retain_graph=True))
+  del s_plain, x
+  bounds = {"word_scores_fwd": out["word_scores_fwd"],
+            "word_scores_drn": out["word_scores_drn"],
+            "word_scores_dwn": {}}
+  word_scores_bounds(bounds, batch, regions, words, dim,
+                     saved.numel() * saved.element_size())
+  for name, rec in out.items():
+    rec["library_ms"] = None
+    records[name][f"at_batch_{batch}"] = rec
+    print(f"  {name}, I = C = {batch}: kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})", flush=True)
+
+
+def config_256(k):
+  from xmcgan_image_generation_tpu_torch.configs import coco_xmc_256
+
+  config = coco_xmc_256.get_config()
+  config.update(data_source="synthetic",
+                num_train_steps=WARMUP_STEPS + TIMED_STEPS_256,
+                log_loss_every_steps=1, grad_accum_steps=k,
+                grain_worker_count=min(config.grain_worker_count,
+                                       os.cpu_count() or 1))
+  return config
+
+
+def train_256(torch, records, card, flagship_steps):
+  """Phase 4c: ``configs/coco_xmc_256.py`` at full width through
+  train.train, with gradient accumulation over microbatches of 128 (of
+  64 when that does not fit) and the configuration's remat."""
+  import gc
+
+  from xmcgan_image_generation_tpu_torch import train as train_lib
+  from xmcgan_image_generation_tpu_torch.ops.cuda import ntxent
+  from xmcgan_image_generation_tpu_torch.ops.cuda import word_scores as ws
+
+  counters = {"ntxent": ntxent.ntxent_stats, "ntxent_bwd": ntxent.ntxent_bwd,
+              "word_scores_fwd": ws.scores, "word_scores_drn": ws.drn}
+  for k in (2, 4):
+    config = config_256(k)
+    images_per_step = config.batch_size * config.d_step_per_g_step
+    print(f"phase 4c: train.train, configs/coco_xmc_256.py: "
+          f"{config.image_size}px, {config.d_step_per_g_step} x "
+          f"{config.batch_size}, grad_accum_steps={k} (microbatch "
+          f"{config.batch_size // k}), remat={config.remat} (min resolution "
+          f"{config.remat_min_resolution}, policy {config.remat_policy}), "
+          f"gf_dim={config.gf_dim}, df_dim={config.df_dim}, {config.dtype}, "
+          f"pretrained tower={config.pretrained_image_contrastive}, "
+          f"{config.num_train_steps} steps, synthetic source (64 examples, "
+          f"repeated within a super-batch of {images_per_step})", flush=True)
+    oom = None
+    with tempfile.TemporaryDirectory() as workdir:
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      for fn in counters.values():
+        fn.launches = 0
+      try:
+        train_lib.train(config, workdir, torch.device("cuda"))
+      except torch.cuda.OutOfMemoryError as e:
+        oom = str(e).splitlines()[0]
+      if oom is None:
+        launches = {name: fn.launches for name, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        lines = loss_lines(workdir)
+        with open(os.path.join(workdir, "checkpoints.jsonl")) as f:
+          saves = [json.loads(line) for line in f]
+    if oom is None:
+      break
+    gc.collect()
+    torch.cuda.empty_cache()
+    if k == 4:
+      fail(f"the 256 px step does not fit at grad_accum_steps=4: {oom}")
+    print(f"  grad_accum_steps={k} does not fit on this card ({oom}); "
+          f"trying 4", flush=True)
+  for line in lines:
+    print(f"  {json.dumps(line)}", flush=True)
+  if len(lines) != config.num_train_steps:
+    fail(f"256 px: {len(lines)} metric lines for {config.num_train_steps} "
+         f"steps")
+  for line in lines:
+    for key, value in line.items():
+      if not math.isfinite(value):
+        fail(f"256 px, step {line['step']}: {key} = {value}")
+  for name, count in launches.items():
+    per_step = records[name]["launches"] / flagship_steps
+    want = per_step * k * config.num_train_steps
+    print(f"  launches during the steps: {name} = {count} (the flagship's "
+          f"{per_step:g} a step x {k} microbatches x "
+          f"{config.num_train_steps} steps = {want:g})", flush=True)
+    if count != want:
+      fail(f"256 px: kernel {name} launched {count} times, expected {want}")
+    records[name]["launches_by_path"]["coco_xmc_256"] = count
+  step_summary(lines, images_per_step, card)
+  print(f"  peak device memory: {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated), grad_accum_steps={k}",
+        flush=True)
+  print(f"  checkpoint at step {saves[-1]['step']}: {saves[-1]['seconds']:.2f}"
+        f" s, {saves[-1]['bytes']} bytes ({saves[-1]['bytes'] / 1e9:.3f} GB) "
+        f"({card})", flush=True)
+
+
+def check_remat(torch, card):
+  """Phase 4d: one critic (D) update at 256 px, full width, on a
+  microbatch of 8 in float32, with remat off, "full" and "conv" from the
+  same weights: D's gradients agree, and each ``u0`` advanced once."""
+  from xmcgan_image_generation_tpu_torch.configs import coco_xmc_256
+  from xmcgan_image_generation_tpu_torch.data import synthetic
+  from xmcgan_image_generation_tpu_torch.engine import xmc_gan
+  from xmcgan_image_generation_tpu_torch.engine.state import (
+      TrainState,
+      create_optimizers,
+  )
+  from xmcgan_image_generation_tpu_torch.models import xmc_net
+  from xmcgan_image_generation_tpu_torch.ops.spectral_norm import (
+      power_iteration_normalize,
+  )
+
+  import numpy as np
+
+  dev = torch.device("cuda")
+  base = coco_xmc_256.get_config()
+  base.update(dtype="float32", batch_size=8)
+  batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic.super_batch(
+      base, np.random.default_rng(0), n=8).items()}
+  g_rng, d_rng = torch.Generator().manual_seed(0), torch.Generator()
+  g_net = xmc_net.Generator(base, device=dev, generator=g_rng)
+  d_net = xmc_net.Discriminator(base, device=dev,
+                                generator=d_rng.manual_seed(1))
+  weights = (g_net.state_dict(), d_net.state_dict())
+  layers = {name: m for name, m in d_net.named_modules()
+            if getattr(m, "spectral", False)}
+  with torch.no_grad():
+    once, twice = {}, {}
+    for name, m in layers.items():
+      _, u1 = power_iteration_normalize(m._kernel_2d(), m.u0)
+      _, u2 = power_iteration_normalize(m._kernel_2d(), u1)
+      once[name], twice[name] = u1, u2
+  results = {}
+  # Deterministic cuDNN algorithms, so that the three updates may differ
+  # only by what remat changes.
+  torch.backends.cudnn.deterministic = True
+  for label, remat in (("off", None), ("full", "full"), ("conv", "conv")):
+    config = type(base)(base)
+    config.update(remat=remat is not None,
+                  remat_min_resolution=config.image_size,
+                  remat_policy=remat or "full")
+    nets = []
+    for cls, sd in zip((xmc_net.Generator, xmc_net.Discriminator), weights):
+      net = cls(config, device="meta").to_empty(device=dev)
+      net.load_state_dict(sd)
+      nets.append(net)
+    g_opt, d_opt = create_optimizers(config, *nets)
+    state = TrainState(step=0, generator=nets[0], discriminator=nets[1],
+                       g_opt=g_opt, d_opt=d_opt, ema_params={})
+    marked = [n for n, m in nets[1].named_children()
+              if getattr(m, "remat_policy", None)]
+    xmc_gan.train_d(state, batch, config)
+    torch.cuda.synchronize()
+    grads = {n: d_opt.state[p]["exp_avg"] / (1 - config.beta1)
+             for n, p in nets[1].named_parameters()}
+    u0 = {n: dict(nets[1].named_modules())[n].u0.clone() for n in layers}
+    results[label] = (grads, u0, marked)
+  torch.backends.cudnn.deterministic = False
+  ref_grads = results["off"][0]
+  top = max(float(g.abs().max()) for g in ref_grads.values())
+  ok = True
+  for label in ("off", "full", "conv"):
+    grads, u0, marked = results[label]
+    err_once = max(float((u0[n] - once[n]).abs().max()) for n in layers)
+    # Layers whose second power step moves u (a one-feature layer's u is
+    # +-1 after any step): u0 must not be the twice-advanced one there.
+    err_twice = min(float((u0[n] - twice[n]).abs().max()) for n in layers
+                    if float((once[n] - twice[n]).abs().max()) > 1e-3)
+    worst, worst_name = 0.0, None
+    identical = all(torch.equal(g, ref_grads[n]) for n, g in grads.items())
+    # float32, TF32 off, deterministic cuDNN: the recompute runs the same
+    # convolutions on the same inputs; 1e-4 of each tensor's largest
+    # gradient, and 1e-6 of D's, for a summation order that may differ.
+    for n, g in grads.items():
+      ref = ref_grads[n]
+      tol = 1e-4 * float(ref.abs().max()) + 1e-6 * top
+      err = float((g - ref).abs().max()) / tol
+      if err > worst:
+        worst, worst_name = err, n
+    print(f"  remat {label}: blocks recomputed {marked or 'none'}; D "
+          f"gradient against remat off: bit-identical {identical}, worst "
+          f"max|difference| / tolerance = {worst:.3f} ({worst_name}); "
+          f"u0: max|u0 - one power step| {err_once:.3e} "
+          f"(tolerance 1e-5), least max|u0 - two steps| {err_twice:.3e} "
+          f"(over the layers a second step moves by more than 1e-3)",
+          flush=True)
+    ok = ok and worst <= 1.0 and err_once <= 1e-5 and err_twice > 1e-5
+    if label != "off" and marked != ["DiscOptimizedBlock_0"]:
+      fail(f"remat {label} recomputed {marked}, expected "
+           f"DiscOptimizedBlock_0 alone")
+  if not ok:
+    fail("remat changed D's gradient or advanced u0 other than once")
+
+
 def flagship_config():
   from xmcgan_image_generation_tpu_torch.configs import coco_xmc
 
   config = coco_xmc.get_config()
   config.data_source = "synthetic"
   config.num_train_steps = WARMUP_STEPS + TIMED_STEPS
+  # A metrics line a step, each step timed to the device's end.
+  config.log_loss_every_steps = 1
   config.grain_worker_count = min(config.grain_worker_count,
                                   os.cpu_count() or 1)
   return config
@@ -511,9 +832,9 @@ def train_flagship(torch, records, card, workdir, config):
   train_lib.train(config, workdir, torch.device("cuda"))
   for name, fn in counters.items():
     records[name]["launches"] = fn.launches
+    records[name]["launches_by_path"] = {"flagship_128": fn.launches}
   peak = torch.cuda.max_memory_allocated()
-  with open(os.path.join(workdir, "metrics.jsonl")) as f:
-    lines = [json.loads(line) for line in f]
+  lines = loss_lines(workdir)
   with open(os.path.join(workdir, "checkpoints.jsonl")) as f:
     saves = [json.loads(line) for line in f]
   for line in lines:
@@ -743,8 +1064,7 @@ def train_from_records(torch, card, config, label, workdir):
   train_lib.train(config, workdir, torch.device("cuda"))
   launches = {name: fn.launches for name, fn in counters.items()}
   peak = torch.cuda.max_memory_allocated()
-  with open(os.path.join(workdir, "metrics.jsonl")) as f:
-    lines = [json.loads(line) for line in f]
+  lines = loss_lines(workdir)
   if len(lines) != config.num_train_steps:
     fail(f"{label}: {len(lines)} metric lines for {config.num_train_steps} "
          f"steps")
@@ -769,7 +1089,6 @@ def real_data_phase(torch, card, dev):
 
   from xmcgan_image_generation_tpu_torch import evaluate
 
-  start = time.perf_counter()
   print("phase 4b: the real-data path (TFRecords, PNG decode and resize on "
         "the host, loader workers, pinned-memory prefetcher)", flush=True)
   with tempfile.TemporaryDirectory() as root:
@@ -801,7 +1120,6 @@ def real_data_phase(torch, card, dev):
           f"{metric.last_images} generated images, "
           f"{time.perf_counter() - t0:.2f} s; scores.csv row "
           f"{json.dumps(rows[0])}", flush=True)
-  print(f"  phase 4b took {time.perf_counter() - start:.1f} s", flush=True)
 
 
 def check_resume(torch, dev):
@@ -826,8 +1144,7 @@ def check_resume(torch, dev):
     got = train_lib.train(config, resumed, dev)
     losses = []
     for workdir in (whole, resumed):
-      with open(os.path.join(workdir, "metrics.jsonl")) as f:
-        losses.append(json.loads(f.readlines()[-1]))
+      losses.append(loss_lines(workdir)[-1])
   if got.step != 2 or want.step != 2 or losses[1]["step"] != 2:
     fail(f"resume: steps {got.step} and {want.step}, expected 2")
   worst_loss = max(
@@ -983,6 +1300,21 @@ def main() -> None:
   name = torch.cuda.get_device_name(0)
   print(f"phase 1: card {card}; torch.cuda.get_device_name(0) = {name}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+  from torch.utils import checkpoint as torch_checkpoint
+  from torch.utils import _python_dispatch
+
+  remat_api = {
+      "torch.utils.checkpoint.checkpoint(context_fn=...)": "context_fn" in (
+          inspect.signature(torch_checkpoint.checkpoint).parameters),
+      "torch.utils.checkpoint.noop_context_fn": hasattr(
+          torch_checkpoint, "noop_context_fn"),
+      "torch.utils._python_dispatch.TorchDispatchMode": hasattr(
+          _python_dispatch, "TorchDispatchMode"),
+  }
+  print(f"  remat's API (models/xmc_net.py): {json.dumps(remat_api)}",
+        flush=True)
+  if not all(remat_api.values()):
+    fail("this torch lacks what remat uses")
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   print("  torch.backends.cuda.matmul.allow_tf32 = False, "
@@ -1024,15 +1356,29 @@ def main() -> None:
     rec["library_ms"] = None
   print("phase 3: kernels against their plain versions, flagship shapes",
         flush=True)
-  check_kernels(torch, records)
-  check_small_step(torch)
   dev = torch.device("cuda")
   config = flagship_config()
+
+  def timed(label, fn, *args):
+    t0 = time.perf_counter()
+    fn(*args)
+    print(f"  ({label}: {time.perf_counter() - t0:.1f} s)", flush=True)
+
+  timed("phase 3", check_kernels, torch, records)
+  timed("phase 3b", check_small_step, torch)
+  print(f"phase 3c: kernels A-C at the 256 px path's microbatch of "
+        f"{MICROBATCH_256}", flush=True)
+  timed("phase 3c", check_kernels_microbatch, torch, records, MICROBATCH_256)
   with tempfile.TemporaryDirectory() as workdir:
-    train_flagship(torch, records, card, workdir, config)
-    real_data_phase(torch, card, dev)
-    check_resume(torch, dev)
-    evaluate_flagship(torch, card, workdir, config, dev)
+    timed("phase 4", train_flagship, torch, records, card, workdir, config)
+    timed("phase 4c", train_256, torch, records, card,
+          config.num_train_steps)
+    print("phase 4d: remat on the card, one 256 px critic update",
+          flush=True)
+    timed("phase 4d", check_remat, torch, card)
+    timed("phase 4b", real_data_phase, torch, card, dev)
+    timed("phase 5", check_resume, torch, dev)
+    timed("phase 6", evaluate_flagship, torch, card, workdir, config, dev)
 
   print(json.dumps({"kernels": list(records.values())}))
   print(card)

@@ -122,9 +122,12 @@ def _command(workdir, steps):
 
 
 def _losses(workdir):
+  """The loss lines (the others report ``steps_per_sec``), without the
+  host's timings."""
   with open(os.path.join(workdir, "metrics.jsonl")) as f:
-    return [{k: v for k, v in json.loads(line).items()
-             if "seconds" not in k} for line in f]
+    lines = [json.loads(line) for line in f]
+  return [{k: v for k, v in line.items() if "seconds" not in k}
+          for line in lines if "d_loss" in line]
 
 
 def test_sigterm_checkpoints_and_resumes(tmp_path):

@@ -25,7 +25,13 @@ The state of a loader's iterator is the number of the next batch; the
 checkpoint keeps it.  Worker processes (``grain_worker_count``) are
 started with ``spawn``: they import numpy and this package's data modules,
 never torch, and never touch CUDA.  Each forms whole batches, one ahead
-of the batch being taken, as grain's ``worker_buffer_size`` of 1 does.
+of the batch being taken, as grain's ``worker_buffer_size`` of 1 does,
+and sends each as its pickled length on the connection and then the raw
+bytes on the connection's pipe, which the parent reads into one buffer a
+megabyte at a time (`_send_batch`, `_recv_batch`): ``Connection.recv``
+allocates the whole remaining size for every read of the pipe, which
+cost some 20 s a 230 MB super-batch of the 256 px configuration on the
+card's host.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ from __future__ import annotations
 import dataclasses
 import math
 import multiprocessing
+import os
+import pickle
 import traceback
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -237,16 +245,44 @@ class DataLoader:
 _BATCHES_AHEAD = 1
 
 
+_CHUNK = 1 << 20   # bytes a read of a batch's pipe asks for
+
+
+def _send_batch(conn, batch: Batch) -> None:
+  """``("batch", size)`` on ``conn``, then the pickled batch's ``size``
+  raw bytes on its pipe."""
+  data = memoryview(pickle.dumps(batch, protocol=pickle.HIGHEST_PROTOCOL))
+  conn.send(("batch", len(data)))
+  while data:
+    data = data[os.write(conn.fileno(), data):]
+
+
+def _recv_batch(conn, size: int) -> Batch:
+  """The ``size`` bytes `_send_batch` wrote after its header, read into
+  one buffer, unpickled."""
+  buf = bytearray(size)
+  view = memoryview(buf)
+  pos = 0
+  while pos < size:
+    n = os.readv(conn.fileno(), [view[pos:pos + _CHUNK]])
+    if n == 0:
+      raise EOFError("the worker's pipe closed inside a batch")
+    pos += n
+  return pickle.loads(buf)
+
+
 def _worker_main(conn, loader: DataLoader) -> None:
   """A worker process: makes each batch whose number arrives on ``conn``
-  and sends it back, or the traceback of the error that stopped it."""
+  and sends it back (`_send_batch`), or the traceback of the error that
+  stopped it."""
   while True:
     number = conn.recv()
     try:
-      conn.send(("batch", loader.batch(number)))
+      batch = loader.batch(number)
     except Exception:  # noqa: BLE001 - raised again in the parent
       conn.send(("error", traceback.format_exc()))
       return
+    _send_batch(conn, batch)
 
 
 class LoaderIterator:
@@ -286,13 +322,16 @@ class LoaderIterator:
         self._workers[self._requested % workers][1].send(self._requested)
         self._requested += 1
       worker = self.position % workers
+      conn = self._workers[worker][1]
       try:
-        kind, batch = self._workers[worker][1].recv()
+        kind, payload = conn.recv()
+        if kind == "batch":
+          batch = _recv_batch(conn, payload)
       except EOFError as e:
         raise RuntimeError(f"loader worker {worker} died") from e
       if kind == "error":
         raise RuntimeError(f"loader worker {worker}, batch "
-                           f"{self.position}:\n{batch}")
+                           f"{self.position}:\n{payload}")
     self.position += 1
     return batch
 

@@ -229,6 +229,9 @@ class TFRecordWriter:
     self._f.write(record)
     self._f.write(_CRC_STRUCT.pack(masked_crc(record)))
 
+  def flush(self) -> None:
+    self._f.flush()
+
   def close(self) -> None:
     self._f.close()
 

@@ -7,7 +7,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from xmcgan_image_generation_tpu_torch.engine import xmc_gan
+from xmcgan_image_generation_tpu_torch.engine import registry
 from xmcgan_image_generation_tpu_torch.engine.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -23,15 +23,35 @@ def split_batch(batch: Batch, splits: int) -> List[Batch]:
   return [{k: parts[k][i] for k in batch} for i in range(splits)]
 
 
+def stack_microbatches(batch: Batch, k: int) -> Batch:
+  """``[B, ...]`` -> ``[k, B // k, ...]`` (views) for gradient
+  accumulation (``config.grad_accum_steps``): microbatch ``i`` holds rows
+  ``[i * B // k, (i + 1) * B // k)``, the partition of `split_batch`.
+  The partition is semantics, not layout: the contrastive losses pool
+  their negatives within a microbatch.  ``k <= 1`` returns the batch."""
+  if k <= 1:
+    return batch
+
+  def stack(x: torch.Tensor) -> torch.Tensor:
+    if x.shape[0] % k:
+      raise ValueError(
+          f"batch dim {x.shape[0]} not divisible by grad_accum_steps={k}")
+    return x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))
+
+  return {name: stack(x) for name, x in batch.items()}
+
+
 def train_step(state: TrainState, batch: Batch, config,
                additional_data: Dict[str, Any]
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
   """One outer step: ``d_step_per_g_step - 1`` D updates, then one joint
-  G+D update, on consecutive sub-batches."""
+  G+D update, on consecutive sub-batches, by the update rules of the
+  configuration's ``model_name`` (`registry.get_gan_algorithm`)."""
+  gan_model = registry.get_gan_algorithm(config)
   n = config.d_step_per_g_step
   sub_batches = split_batch(batch, n)
   for i in range(n - 1):
-    xmc_gan.train_d(state, sub_batches[i], config)
-  metrics = xmc_gan.train_g_d(state, sub_batches[-1], config,
-                              additional_data)
+    gan_model.train_d(state, sub_batches[i], config)
+  metrics = gan_model.train_g_d(state, sub_batches[-1], config,
+                                additional_data)
   return state, metrics

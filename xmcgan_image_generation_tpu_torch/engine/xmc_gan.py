@@ -1,5 +1,4 @@
-"""XMC-GAN update rules (the JAX package's ``engine/xmc_gan.py``, the
-default two-gradient branch with ``grad_accum_steps=1``).
+"""XMC-GAN update rules (the JAX package's ``engine/xmc_gan.py``).
 
 The JAX joint step runs D twice, once per gradient, and leaves XLA to
 merge the two forwards.  Eager PyTorch merges nothing, so here D runs once
@@ -8,6 +7,16 @@ on ``concat(real, fake)`` and two ``torch.autograd.grad`` pulls take
 dual-cotangent form, whose equality with the two-pass form the JAX tests
 show.  The pull of ``d_loss`` reaches no G parameter, so the fake images
 need no detach.
+
+With ``config.grad_accum_steps = k > 1`` each update takes its gradients
+on k contiguous microbatches in turn (`engine.step.stack_microbatches`),
+each graph freed before the next, so live activations are one
+microbatch's; it sums them in float32, divides by k and steps each Adam
+once (and the EMA once).  As in the JAX ``lax.scan``, mutable state
+threads in sequence: microbatch i+1 sees the ``u0`` and G batch
+statistics that microbatch i wrote, so ``u0`` advances k times an update.
+The contrastive pools, the ResNet-50 term and the batch statistics are
+each microbatch's own: a capacity knob, not a large-batch emulation.
 """
 
 from __future__ import annotations
@@ -86,18 +95,42 @@ def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
   opt.zero_grad(set_to_none=True)
 
 
-def train_g_d(state: TrainState, batch: Batch, config,
-              additional_data: Optional[Dict[str, Any]] = None
-              ) -> Dict[str, torch.Tensor]:
-  """Joint G+D update on one sub-batch; updates ``state`` in place and
-  returns the five losses."""
-  additional_data = additional_data or {}
-  g_net, d_net = state.generator, state.discriminator
-  g_net.train()
-  d_net.train()
-  g_params = list(g_net.parameters())
-  d_params = list(d_net.parameters())
+def _accumulated(fn, batch: Batch, config):
+  """``fn(microbatch) -> (grads, losses)`` over ``grad_accum_steps``
+  microbatches in turn: the mean gradients (each a tuple of tensors) and
+  the mean losses.  One microbatch (k = 1) is ``fn(batch)``."""
+  from xmcgan_image_generation_tpu_torch.engine.step import (
+      stack_microbatches,
+  )
 
+  k = int(config.get("grad_accum_steps", 1))
+  if k <= 1:
+    return fn(batch)
+  micro = stack_microbatches(batch, k)
+  grad_sums = loss_sums = None
+  for i in range(k):
+    grads, losses = fn({name: x[i] for name, x in micro.items()})
+    if grad_sums is None:
+      # Fresh float32 sums: two parameters may be handed one gradient.
+      grad_sums = tuple([g.to(torch.float32, copy=True) for g in part]
+                        for part in grads)
+      loss_sums = losses
+    else:
+      for sums, part in zip(grad_sums, grads):
+        for total, g in zip(sums, part):
+          total.add_(g)
+      loss_sums = {name: v + losses[name] for name, v in loss_sums.items()}
+  for sums in grad_sums:
+    for total in sums:
+      total.div_(k)
+  return grad_sums, {name: v / k for name, v in loss_sums.items()}
+
+
+def _joint_grads(state: TrainState, batch: Batch, config,
+                 additional_data: Dict[str, Any]):
+  """``((d_grads, g_grads), losses)`` of the joint update on one
+  (micro)batch: one G and one D forward, two pulls."""
+  g_net, d_net = state.generator, state.discriminator
   real_image = image_to_float(batch["image"])
   fake_image = g_net(batch, _noise(batch, g_net.dtype))
   all_images = torch.cat([real_image, fake_image.float()])
@@ -111,10 +144,28 @@ def train_g_d(state: TrainState, batch: Batch, config,
   d_loss = losses.hinge_d(real_logit, fake_logit) + c_loss_d
   g_loss = losses.hinge_g(fake_logit) + c_loss_g + c_loss_g_pretrained
 
-  d_grads = _grads(d_loss, d_params, retain_graph=True)
-  g_grads = _grads(g_loss, g_params)
-  _apply(state.d_opt, d_params, d_grads)
-  _apply(state.g_opt, g_params, g_grads)
+  d_grads = _grads(d_loss, list(d_net.parameters()), retain_graph=True)
+  g_grads = _grads(g_loss, list(g_net.parameters()))
+  return (d_grads, g_grads), dict(
+      d_loss=d_loss.detach(), g_loss=g_loss.detach(),
+      c_loss_d=c_loss_d.detach(), c_loss_g=c_loss_g.detach(),
+      c_loss_g_pretrained=c_loss_g_pretrained.detach())
+
+
+def train_g_d(state: TrainState, batch: Batch, config,
+              additional_data: Optional[Dict[str, Any]] = None
+              ) -> Dict[str, torch.Tensor]:
+  """Joint G+D update on one sub-batch; updates ``state`` in place and
+  returns the five losses (means over the microbatches)."""
+  additional_data = additional_data or {}
+  g_net, d_net = state.generator, state.discriminator
+  g_net.train()
+  d_net.train()
+  (d_grads, g_grads), loss_values = _accumulated(
+      lambda mb: _joint_grads(state, mb, config, additional_data), batch,
+      config)
+  _apply(state.d_opt, list(d_net.parameters()), d_grads)
+  _apply(state.g_opt, list(g_net.parameters()), g_grads)
 
   decay = config.polyak_decay
   with torch.no_grad():
@@ -122,21 +173,12 @@ def train_g_d(state: TrainState, batch: Batch, config,
       ema = state.ema_params[name]
       ema.mul_(decay).add_(p, alpha=1.0 - decay)
   state.step += 1
-  return dict(d_loss=d_loss.detach(), g_loss=g_loss.detach(),
-              c_loss_d=c_loss_d.detach(), c_loss_g=c_loss_g.detach(),
-              c_loss_g_pretrained=c_loss_g_pretrained.detach())
+  return loss_values
 
 
-def train_d(state: TrainState, batch: Batch, config) -> None:
-  """Discriminator-only update (an extra critic step), in place.
-
-  G runs forward in train mode without writing its running statistics;
-  D's spectral-norm state advances.
-  """
+def _critic_grads(state: TrainState, batch: Batch):
+  """``((d_grads,), {})`` of the critic update on one (micro)batch."""
   g_net, d_net = state.generator, state.discriminator
-  g_net.train()
-  d_net.train()
-  d_params = list(d_net.parameters())
   with torch.no_grad(), frozen_batch_stats(g_net):
     fake_image = g_net(batch, _noise(batch, g_net.dtype))
   all_images = torch.cat([image_to_float(batch["image"]),
@@ -145,4 +187,17 @@ def train_d(state: TrainState, batch: Batch, config) -> None:
   real_logit, fake_logit = logit.float().chunk(2)
   c_loss_d, _ = contrastive_totals(stats)
   d_loss = losses.hinge_d(real_logit, fake_logit) + c_loss_d
-  _apply(state.d_opt, d_params, _grads(d_loss, d_params))
+  return (_grads(d_loss, list(d_net.parameters())),), {}
+
+
+def train_d(state: TrainState, batch: Batch, config) -> None:
+  """Discriminator-only update (an extra critic step), in place.
+
+  G runs forward in train mode without writing its running statistics
+  (for every microbatch); D's spectral-norm state advances.
+  """
+  state.generator.train()
+  state.discriminator.train()
+  (d_grads,), _ = _accumulated(lambda mb: _critic_grads(state, mb), batch,
+                               config)
+  _apply(state.d_opt, list(state.discriminator.parameters()), d_grads)

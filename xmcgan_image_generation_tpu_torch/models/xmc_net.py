@@ -6,23 +6,39 @@ Parameters are float32 and compute runs in the configured dtype.  The
 ported generator path is the default one: fused spatial modulation
 (``fused_spatial_cond``) without spectral norm in G.  BatchNorm statistics
 and contrastive pools are over the whole batch on one device.
+
+``config.remat`` recomputes a block's forward in the backward instead of
+keeping its activations (`torch.utils.checkpoint`, non-reentrant), for
+the blocks whose largest side is at least ``remat_min_resolution`` (0:
+all); ``remat_policy`` "full" saves nothing, "conv" saves the outputs of
+convolutions and matmuls (`_matmul_saveable`, through a pair of dispatch
+modes that serve any number of recomputes).  Parameter and buffer
+names are the same with remat on or off.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from xmcgan_image_generation_tpu_torch.models import blocks
 from xmcgan_image_generation_tpu_torch.ops import attention as attn_ops
 from xmcgan_image_generation_tpu_torch.ops import contrastive as contrastive_ops
 from xmcgan_image_generation_tpu_torch.ops.normalization import (
     FusedSpatialModulation,
+    frozen_batch_stats,
 )
-from xmcgan_image_generation_tpu_torch.ops.spectral_norm import Conv, Dense
+from xmcgan_image_generation_tpu_torch.ops.spectral_norm import (
+    Conv,
+    Dense,
+    precomputed_kernels,
+)
 
 Tensor = torch.Tensor
 BERT_DIM = 768
@@ -60,8 +76,6 @@ def compute_dtype(config) -> torch.dtype:
 
 def _check_supported(config) -> None:
   """Raises on configuration branches the port does not have yet."""
-  if config.get("remat", False):
-    raise NotImplementedError("remat is not ported yet (ROADMAP queue 1)")
   if int(config.get("batch_norm_group_size", -1)) > 0:
     raise NotImplementedError("grouped BatchNorm is not ported yet")
   if int(config.get("contrastive_group_size", -1)) > 0:
@@ -69,6 +83,110 @@ def _check_supported(config) -> None:
   if config.get("scale_fused_convs", False) and config.get(
       "upconv_method", "phase") != "dilated":
     raise NotImplementedError("only upconv_method='dilated' is ported")
+
+
+def _matmul_saveable(op) -> bool:
+  """Remat policy "conv": save the outputs of convolutions and matmuls,
+  recompute the elementwise work between them (BatchNorm, ReLU, the
+  conditional modulation), as the JAX package's ``_matmul_saveable``
+  saves ``conv_general_dilated`` and ``dot_general``."""
+  aten = torch.ops.aten
+  return op in (aten.convolution.default, aten.mm.default,
+                aten.addmm.default, aten.bmm.default)
+
+
+class _SaveMatmuls(TorchDispatchMode):
+  """The region's forward: keeps the outputs of `_matmul_saveable` ops
+  in call order."""
+
+  def __init__(self, saved: list):
+    super().__init__()
+    self.saved = saved
+
+  def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+    out = func(*args, **(kwargs or {}))
+    if _matmul_saveable(func):
+      self.saved.append((out.detach(), out._version))
+    return out
+
+
+class _ReuseMatmuls(TorchDispatchMode):
+  """A recompute of the region: hands back the saved outputs in the same
+  order instead of running those ops again.  Unlike
+  ``torch.utils.checkpoint.create_selective_checkpoint_contexts``, whose
+  cache serves one backward, every recompute starts over, so both pulls
+  of the joint step (`engine.xmc_gan`) can run through the region."""
+
+  def __init__(self, saved: list):
+    super().__init__()
+    self.saved = saved
+    self.index = 0
+
+  def __enter__(self):
+    self.index = 0
+    return super().__enter__()
+
+  def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+    if not _matmul_saveable(func):
+      return func(*args, **(kwargs or {}))
+    out, version = self.saved[self.index]
+    self.index += 1
+    if out._version != version:
+      raise RuntimeError("an output saved for remat was modified in place")
+    return out
+
+
+def _conv_saving_contexts():
+  saved = []
+  return _SaveMatmuls(saved), _ReuseMatmuls(saved)
+
+
+def _maybe_remat(config, block: nn.Module, resolution: int) -> nn.Module:
+  """Marks ``block`` (whose largest feature-map side is ``resolution``)
+  for recompute when the configuration asks for it; returns it.
+
+  ``remat_policy`` is validated even where the block is not rematted.
+  """
+  policy = config.get("remat_policy", "full")
+  if policy not in ("full", "conv"):
+    raise ValueError(f"Unknown remat_policy: {policy!r}")
+  block.remat_policy = None
+  min_res = config.get("remat_min_resolution", 0)
+  if config.get("remat", False) and not (min_res and resolution < min_res):
+    block.remat_policy = policy
+  return block
+
+
+def _run_block(block: nn.Module, *args: Tensor) -> Tensor:
+  """``block(*args)``, recomputed in the backward if it is marked.
+
+  What the forward writes, it writes once.  The spectrally normalized
+  kernels are taken before the recomputed region (advancing ``u0`` once)
+  and handed in as its inputs, so the recompute computes with the
+  forward's sigma; the recompute runs the BatchNorms without writing
+  their running averages.  The values are the forward's.
+  """
+  policy = block.remat_policy
+  if policy is None or not torch.is_grad_enabled():
+    return block(*args)
+  layers = [m for m in block.modules() if getattr(m, "spectral", False)]
+  kernels = [m.normalized_kernel() for m in layers]
+  calls = []
+
+  def run(*inputs):
+    recompute = contextlib.nullcontext() if not calls else (
+        frozen_batch_stats(block))
+    calls.append(None)
+    with precomputed_kernels(layers, inputs[len(args):]), recompute:
+      return block(*inputs[:len(args)])
+
+  context_fn = (_conv_saving_contexts if policy == "conv"
+                else torch_checkpoint.noop_context_fn)
+  # The blocks draw no random numbers: no RNG state to keep.
+  return torch_checkpoint.checkpoint(run, *args, *kernels,
+                                     use_reentrant=False,
+                                     preserve_rng_state=False,
+                                     context_fn=context_fn)
 
 
 class Generator(nn.Module):
@@ -100,17 +218,19 @@ class Generator(nn.Module):
     self.Dense_0 = Dense(BERT_DIM, z_dim, **kw)
     self.Dense_1 = Dense(z_dim, gf * 16 * 4 * 4, **kw)
     in_ch = gf * 16
+    # Block i's output side is 4 * 2 ** (i + 1), as in the JAX package.
     for i in range(2):
-      self.add_module(f"GenBlock_{i}", blocks.GenBlock(
-          in_ch, gf * channels[i], cond, scale_fuse=fuse, **kw))
+      self.add_module(f"GenBlock_{i}", _maybe_remat(config, blocks.GenBlock(
+          in_ch, gf * channels[i], cond, scale_fuse=fuse, **kw),
+          4 * 2 ** (i + 1)))
       in_ch = gf * channels[i]
     self.Conv_0 = Conv(in_ch, BERT_DIM, (1, 1), **kw)
     factor = 1
     self.spatial_blocks = []
     for i in range(2, len(channels)):
-      block = blocks.GenSpatialBlockFused(
+      block = _maybe_remat(config, blocks.GenSpatialBlockFused(
           in_ch, gf * channels[i], BERT_DIM, cond, factor, scale_fuse=fuse,
-          **kw)
+          **kw), 4 * 2 ** (i + 1))
       self.add_module(f"GenSpatialBlockFused_{i - 2}", block)
       self.spatial_blocks.append(block)
       in_ch = gf * channels[i]
@@ -127,8 +247,8 @@ class Generator(nn.Module):
     z = z.to(self.dtype)
     global_cond = torch.cat([self.Dense_0(sentence.to(self.dtype)), z], -1)
     x = self.Dense_1(z).reshape(batch, 4, 4, -1).permute(0, 3, 1, 2)
-    x = self.GenBlock_0(x, global_cond)
-    x = self.GenBlock_1(x, global_cond)
+    x = _run_block(self.GenBlock_0, x, global_cond)
+    x = _run_block(self.GenBlock_1, x, global_cond)
 
     # Word-region attention at 16x16.
     region = self.Conv_0(x)
@@ -142,7 +262,7 @@ class Generator(nn.Module):
         batch, side, side, embedding_dim).permute(0, 3, 1, 2).to(self.dtype)
 
     for block in self.spatial_blocks:
-      x = block(x, region_context, global_cond)
+      x = _run_block(block, x, region_context, global_cond)
     x = self.FusedSpatialModulation_0(x, region_context, global_cond)
     x = torch.tanh(self.Conv_1(F.relu(x)))
     return ((x + 1.0) / 2.0).permute(0, 2, 3, 1)
@@ -171,13 +291,16 @@ class Discriminator(nn.Module):
     channels = _DISC_CHANNELS[config.image_size]
     downsamples = _DISC_DOWNSAMPLE[config.image_size]
 
-    self.DiscOptimizedBlock_0 = blocks.DiscOptimizedBlock(
-        3, df, spectral=spectral, scale_fuse=fuse, **kw)
+    # Remat sides as in the JAX package: the image size for the first
+    # block, then each block's input side.
+    self.DiscOptimizedBlock_0 = _maybe_remat(config, blocks.DiscOptimizedBlock(
+        3, df, spectral=spectral, scale_fuse=fuse, **kw), config.image_size)
     in_ch, resolution, cond_ch = df, config.image_size // 2, None
     self.disc_blocks = []
     for i, (ratio, down) in enumerate(zip(channels, downsamples)):
-      block = blocks.DiscBlock(in_ch, df * ratio, down, spectral=spectral,
-                               scale_fuse=fuse, **kw)
+      block = _maybe_remat(config, blocks.DiscBlock(
+          in_ch, df * ratio, down, spectral=spectral, scale_fuse=fuse, **kw),
+          resolution)
       self.add_module(f"DiscBlock_{i}", block)
       self.disc_blocks.append(block)
       in_ch = df * ratio
@@ -203,10 +326,10 @@ class Discriminator(nn.Module):
     config = self.config
     use_pallas = bool(config.get("use_pallas", False))
     x = images.permute(0, 3, 1, 2).to(self.dtype)
-    x = self.DiscOptimizedBlock_0(x)
+    x = _run_block(self.DiscOptimizedBlock_0, x)
     x_cond = None
     for block in self.disc_blocks:
-      x = block(x)
+      x = _run_block(block, x)
       if x.shape[2] == config.cond_size:
         x_cond = x
     x_pool = F.relu(x).sum(dim=(2, 3))

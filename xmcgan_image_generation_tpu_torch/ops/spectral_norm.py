@@ -13,12 +13,18 @@ stand beside: one `Dense` and one `Conv`, each with a ``spectral`` switch.
   ``[1, features]`` advances only in train mode.
 * Kernels are ``[out, in]`` (Dense) and OIHW (conv); `utils.bridge` maps
   them to the flax layouts.
+* Under recompute (``models.xmc_net``'s remat) the normalized kernels are
+  computed once, outside the recomputed region, and handed in through
+  `precomputed_kernels`: the recompute then sees the forward's sigma and
+  leaves ``u0`` alone, as flax's ``nn.remat`` returns the mutable
+  collections of the forward alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -71,6 +77,10 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
 
 
 def _init_tensor(shape, init, device) -> nn.Parameter:
+  """A float32 parameter drawn by ``init`` (zeros when None) on the CPU,
+  then moved; on the ``meta`` device, shapes only (nothing is drawn)."""
+  if device is not None and torch.device(device).type == "meta":
+    return nn.Parameter(torch.empty(shape, device="meta"))
   t = torch.empty(shape, dtype=torch.float32)
   if init is not None:
     init(t)
@@ -90,6 +100,7 @@ class _Layer(nn.Module):
     self.kernel = _init_tensor(kernel_shape, init, device)
     self.bias = (_init_tensor((features,), None, device) if use_bias
                  else None)
+    self.kernel_override = None   # see `precomputed_kernels`
     if spectral:
       u0 = torch.randn((1, features), generator=generator) * 1e-2
       self.register_buffer("u0", u0.to(device))
@@ -99,7 +110,10 @@ class _Layer(nn.Module):
 
   def normalized_kernel(self) -> torch.Tensor:
     """The kernel in the compute dtype, spectrally normalized if asked;
-    advances ``u0`` in train mode."""
+    advances ``u0`` in train mode.  Inside `precomputed_kernels`, the
+    kernel handed in."""
+    if self.kernel_override is not None:
+      return self.kernel_override
     if not self.spectral:
       return self.kernel.to(self.dtype)
     sigma, new_u0 = power_iteration_normalize(self._kernel_2d(), self.u0)
@@ -141,6 +155,20 @@ class Dense(_Layer):
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     y = F.linear(x.to(self.dtype), self.normalized_kernel())
     return self._add_bias(y, -1)
+
+
+@contextlib.contextmanager
+def precomputed_kernels(layers: Sequence[_Layer],
+                        kernels: Sequence[torch.Tensor]) -> Iterator[None]:
+  """Within the block, ``layers[i]`` computes with ``kernels[i]`` (from
+  its `normalized_kernel`, taken before) instead of normalizing again."""
+  for layer, kernel in zip(layers, kernels, strict=True):
+    layer.kernel_override = kernel
+  try:
+    yield
+  finally:
+    for layer in layers:
+      layer.kernel_override = None
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:

@@ -1,15 +1,21 @@
-"""Times and profiles the flagship training step on one GPU.
+"""Times and profiles a training step on one GPU.
 
-``python -m xmcgan_image_generation_tpu_torch.profile_step``
+``python -m xmcgan_image_generation_tpu_torch.profile_step
+[--config=default|FILE[:VARIANT]] [--config.KEY=VALUE ...]``
+
+The configuration is read as `main` reads it (the flagship by default;
+``--config=xmcgan_image_generation_tpu_torch/configs/coco_xmc_256.py
+--config.grad_accum_steps=2`` for the 256 px step), on the synthetic
+source.
 
 TF32 is off for matmuls and convolutions, as in ``chip_smoke.py``.  Each
 step is `train.timed_step`, the loop of `train.train`: take the next
 super-batch of the synthetic source from the prefetcher (the loader's
 workers make it while the card runs), take the outer step, synchronize.
 
-1. Sets up two flagship runs (128 px, 2 x 56, bfloat16, synthetic data
-   from the config's seed): one with ``use_pallas`` on (the CUDA
-   kernels), one off (the einsum heads).  After 2 warm-up steps each it
+1. Sets up two runs of the configuration (the flagship: 128 px, 2 x 56,
+   bfloat16, synthetic data from the config's seed): one with
+   ``use_pallas`` on (the CUDA kernels), one off (the einsum heads).  After 2 warm-up steps each it
    times 5 outer steps per arm, in the order on, off, off, on and then
    off, on, on, off, for 3 rounds, and prints each arm's step times with
    their median and quartiles.
@@ -23,6 +29,7 @@ Prints one JSON line at the end.  Needs a CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -30,8 +37,8 @@ import time
 
 import torch
 
+from xmcgan_image_generation_tpu_torch import main as main_lib
 from xmcgan_image_generation_tpu_torch import train as train_lib
-from xmcgan_image_generation_tpu_torch.configs import coco_xmc
 
 ROUNDS, STEPS, WARMUP, TOP = 3, 5, 2, 25
 # Kernel-name fragments of each group, first match wins.
@@ -57,8 +64,8 @@ def _group(name: str) -> str:
   return "other"
 
 
-def _arm(use_pallas: bool, device):
-  config = coco_xmc.get_config()
+def _arm(base, use_pallas: bool, device):
+  config = type(base)(base)
   config.data_source = "synthetic"
   config.use_pallas = use_pallas
   run, _ = train_lib.setup(config, device)
@@ -75,7 +82,11 @@ def _quartiles(xs):
           "n": len(xs)}
 
 
-def main() -> None:
+def main(argv=None) -> None:
+  parser = argparse.ArgumentParser(description=__doc__)
+  parser.add_argument("--config", default="default")
+  args, overrides = parser.parse_known_args(argv)
+  base = main_lib.config_from_args(parser, args.config, overrides)
   if not torch.cuda.is_available():
     raise SystemExit("profile_step needs a CUDA device")
   device = torch.device("cuda")
@@ -85,10 +96,13 @@ def main() -> None:
       ["nvidia-smi", "--query-gpu=name,power.limit",
        "--format=csv,noheader"], capture_output=True, text=True,
       check=True).stdout.strip().splitlines()[0]
-  print(f"card: {card}; TF32 off (matmul and cuDNN)", flush=True)
+  print(f"card: {card}; TF32 off (matmul and cuDNN); {base.image_size} px, "
+        f"{base.d_step_per_g_step} x {base.batch_size}, grad_accum_steps "
+        f"{base.grad_accum_steps}, remat {base.remat} (min resolution "
+        f"{base.remat_min_resolution}, {base.remat_policy})", flush=True)
 
-  config, on = _arm(True, device)
-  _, off = _arm(False, device)
+  config, on = _arm(base, True, device)
+  _, off = _arm(base, False, device)
   for fn in (on, off):
     for _ in range(WARMUP):
       fn()

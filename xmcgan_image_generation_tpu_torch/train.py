@@ -15,15 +15,26 @@ every ``eval_every_steps`` and at the last step, checkpoints every
 loop at a step agreed through the workdir (`utils.preemption`), which it
 checkpoints before returning without ``TRAIN_DONE``.
 
-Each step writes one JSON line to ``workdir/metrics.jsonl``: the step, the
-five losses, ``g_lr`` and ``d_lr`` when the learning rate is scheduled,
-``seconds``, the step's wall time (host clock, from asking for the
-super-batch until the device has finished the step), and within it
-``data_seconds``, the wall time spent blocked waiting for the super-batch:
-the input stall, as the JAX package's ``tools/pipeline_bench.py`` measures
-it.  Sampling and checkpoints lie outside that window; each save's seconds
-and bytes go to ``workdir/checkpoints.jsonl``.  `setup` and `timed_step`
-are the loop's two halves, for tools that time the step.
+The JAX loop's services write the metrics: every
+``log_loss_every_steps`` and at the last step, one JSON line in
+``workdir/metrics.jsonl`` (and a TensorBoard event) holds the step and the
+interval's means (`utils.metric_writer.MetricAccumulator`) of the five
+losses, ``seconds`` and ``data_seconds``, with ``g_lr`` and ``d_lr`` when
+the learning rate is scheduled; every ``min(100, log_loss_every_steps)``
+steps a line holds ``steps_per_sec`` and ``perf/images_per_sec``
+(`ReportProgress`); a fresh run writes ``hparams.json``; ``profile=True``
+captures steps 10-15 with ``torch.profiler`` (`Profile`).  ``seconds`` is
+a step's wall time on the host clock from asking for the super-batch to
+the step's end, and ``data_seconds``, within it, the time blocked waiting
+for the super-batch: the input stall, as the JAX package's
+``tools/pipeline_bench.py`` measures it.  The loop waits for the device
+only at a logging step, so one interval's steps tile its wall time and
+the last ends when the device has finished: their mean is the
+interval's mean step time.  With ``log_loss_every_steps=1`` every step
+ends synchronized.  Sampling and checkpoints lie outside those windows;
+each save's seconds and bytes go to ``workdir/checkpoints.jsonl``.
+`setup` and `timed_step` are the loop's two halves, for tools that time
+the step.
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ import torch
 
 from xmcgan_image_generation_tpu_torch.data import pipeline
 from xmcgan_image_generation_tpu_torch.data.prefetch import DevicePrefetcher
-from xmcgan_image_generation_tpu_torch.engine import xmc_gan
+from xmcgan_image_generation_tpu_torch.engine import registry
 from xmcgan_image_generation_tpu_torch.engine.sampling import generate_batch
 from xmcgan_image_generation_tpu_torch.engine.state import (
     TrainState,
@@ -53,7 +64,12 @@ from xmcgan_image_generation_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     checkpoints_dir,
 )
-from xmcgan_image_generation_tpu_torch.utils.metric_writer import MetricWriter
+from xmcgan_image_generation_tpu_torch.utils.metric_writer import (
+    MetricAccumulator,
+    MetricWriter,
+    Profile,
+    ReportProgress,
+)
 from xmcgan_image_generation_tpu_torch.utils.preemption import PreemptionGuard
 from xmcgan_image_generation_tpu_torch.utils.task_manager import (
     TaskManagerWithCsvResults,
@@ -78,9 +94,11 @@ def compute_num_train_steps(config, num_train_examples: int) -> int:
 
 def setup(config, device: torch.device) -> Tuple[Run, int]:
   """The state, the additional data and the prefetched super-batches of a
-  run, and the number of training examples."""
+  run, and the number of training examples; raises on a ``model_name``
+  other than ``"xmc"``."""
+  gan_model = registry.get_gan_algorithm(config)
   state = create_train_state(config, device, seed=config.seed)
-  additional_data = xmc_gan.create_additional_data(config, device)
+  additional_data = gan_model.create_additional_data(config, device)
   train_loader, _, num_train = pipeline.create_datasets(config,
                                                         seed=config.seed)
   batches = DevicePrefetcher(iter(train_loader), device,
@@ -88,22 +106,22 @@ def setup(config, device: torch.device) -> Tuple[Run, int]:
   return (state, additional_data, batches), num_train
 
 
-def timed_step(run: Run, config, device: torch.device
-               ) -> Tuple[Dict[str, float], float, float,
+def timed_step(run: Run, config, device: torch.device, sync: bool = True
+               ) -> Tuple[Dict[str, torch.Tensor], float, float,
                           Dict[str, torch.Tensor]]:
   """Takes the next super-batch and one outer step on it.  Returns the
-  metrics, the seconds until the device has finished, the seconds of
-  those spent blocked waiting for the batch, and the batch."""
+  metrics (tensors on the device), the seconds until the step has been
+  issued (and, with ``sync``, until the device has finished it), the
+  seconds of those spent blocked waiting for the batch, and the batch."""
   state, additional_data, batches = run
   start = time.perf_counter()
   batch = next(batches)
   data_seconds = time.perf_counter() - start
   _, metrics = train_step(state, batch, config, additional_data)
-  if device.type == "cuda":
+  if sync and device.type == "cuda":
     torch.cuda.synchronize(device)
   seconds = time.perf_counter() - start
-  return ({k: float(v) for k, v in metrics.items()}, seconds, data_seconds,
-          batch)
+  return metrics, seconds, data_seconds, batch
 
 
 def train(config, workdir: str, device="cuda") -> TrainState:
@@ -132,6 +150,18 @@ def train(config, workdir: str, device="cuda") -> TrainState:
   ckpt.restore_or_initialize(state, batches)
   initial_step = state.step + 1
   writer = MetricWriter(workdir)
+  if initial_step == 1:
+    writer.write_hparams(dict(config))
+  hooks = [ReportProgress(
+      every_steps=min(100, config.log_loss_every_steps),
+      num_train_steps=num_train_steps, writer=writer,
+      images_per_step=config.batch_size * config.d_step_per_g_step)]
+  profile = None
+  if config.get("profile", False):
+    profile = Profile(workdir, profile_step=10, num_profile_steps=5,
+                      device=device)
+    hooks.append(profile)
+  acc = MetricAccumulator()
   g_lr, d_lr = learning_rates(config)
   guard = PreemptionGuard(workdir, initial_step,
                           margin=config.get("preemption_margin", 2))
@@ -141,12 +171,20 @@ def train(config, workdir: str, device="cuda") -> TrainState:
   try:
     for step in range(initial_step, num_train_steps + 1):
       is_last = step == num_train_steps
-      metrics, seconds, data_seconds, batch = timed_step(run, config, device)
-      scalars = {**metrics, "seconds": seconds, "data_seconds": data_seconds}
-      if callable(g_lr):  # a scheduled rate: make it visible
-        scalars["g_lr"] = g_lr(step)
-        scalars["d_lr"] = d_lr(step * config.d_step_per_g_step)
-      writer.write_scalars(state.step, scalars)
+      log_now = step % config.log_loss_every_steps == 0 or is_last
+      metrics, seconds, data_seconds, batch = timed_step(
+          run, config, device, sync=log_now)
+      acc.update({**metrics, "seconds": seconds,
+                  "data_seconds": data_seconds})
+      for hook in hooks:
+        hook(step)
+
+      if log_now:
+        scalars = acc.compute_and_reset()
+        if callable(g_lr):  # a scheduled rate: make it visible
+          scalars["g_lr"] = g_lr(step)
+          scalars["d_lr"] = d_lr(step * config.d_step_per_g_step)
+        writer.write_scalars(step, scalars)
 
       if step % config.eval_every_steps == 0 or is_last:
         vis_batch = split_batch(batch, config.d_step_per_g_step)[0]
@@ -170,6 +208,8 @@ def train(config, workdir: str, device="cuda") -> TrainState:
         preempted_at = step
         break
   finally:
+    if profile is not None:
+      profile.close()
     guard.uninstall()
     batches.close()
     writer.close()
