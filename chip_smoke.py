@@ -58,7 +58,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    (the flagship G with normal and EMA weights, the full 299 px
    InceptionV3, ``eval_num`` cut to 2048) and prints the seconds, images
    per second, peak memory and the ``scores.csv`` row;
-7. prints the kernel records as one JSON line, the card line, and last
+7. serving: exports phase 4's checkpoint with
+   ``utils.serving.export_from_workdir`` (EMA weights, bfloat16, symbolic
+   batch, and an int8 artifact), serves both ``.pt2`` files at batch 1, 8
+   and 56 on the card from a fresh subprocess that imports ``torch`` and
+   nothing of the repository, holds the bfloat16 images against the eager
+   EMA G on the same inputs, prints the int8-vs-bf16 deviation, the bytes,
+   ms per request and images/s; and holds the ResNet-50 tower's
+   antialiased 256 -> 224 resize on the card against the CPU's;
+8. prints the kernel records as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.  Any failed phase exits non-zero before
@@ -89,6 +97,14 @@ RECORDS_VAL = 112
 RECORDS_EVAL_NUM = 224   # the real-data phase's eval_num
 FULL_SIZE = (480, 640)   # COCO's common image size
 HOST_SAMPLE = 24         # records timed one by one on the host
+SERVE_BATCHES = (1, 8, 56)
+SERVE_STEPS = 10         # calls a timing window
+SERVE_WINDOWS = 5
+# The artifact runs G's own operations on the same card, so its bf16
+# images are expected bit for bit; the check allows 2^-5 (eight bf16 ulps
+# of the top binade of [0, 1]) for cuDNN picking other algorithms in the
+# serving process.
+SERVE_ATOL = 2.0 ** -5
 
 # The least time of a kernel's work: the larger of its bytes (inputs read
 # once, outputs written once) over the memory rate and its operations over
@@ -1283,6 +1299,162 @@ def eval_breakdown(torch, config, dev, workdir, metric):
         flush=True)
 
 
+# The serving process: it imports torch and nothing of the repository (nor
+# JAX), loads each artifact, serves every batch of the inputs file and
+# times SERVE_WINDOWS windows of SERVE_STEPS calls with CUDA events.
+_SERVE_SCRIPT = """
+import json, sys, time
+BLOCKED = ("jax", "jaxlib", "flax", "xmcgan_image_generation_tpu",
+           "xmcgan_image_generation_tpu_torch")
+for name in BLOCKED:
+  sys.modules[name] = None
+import torch
+inputs_path, out_path, steps, windows, *artifacts = sys.argv[1:]
+inputs = torch.load(inputs_path)
+report, images = {}, {}
+for path in artifacts:
+  t0 = time.perf_counter()
+  module = torch.export.load(path).module()
+  entry = {"load_seconds": time.perf_counter() - t0, "batches": {}}
+  with torch.no_grad():
+    for b, x in inputs.items():
+      t0 = time.perf_counter()
+      images[(path, b)] = module(*x)
+      torch.cuda.synchronize()
+      first = time.perf_counter() - t0
+      ms = []
+      for _ in range(int(windows)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(int(steps)):
+          module(*x)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end) / int(steps))
+      entry["batches"][b] = {"first_call_seconds": first, "ms_windows": ms}
+  report[path] = entry
+torch.save(images, out_path)
+report["loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED
+                          and sys.modules[m] is not None)
+print(json.dumps(report))
+"""
+
+
+def serve_flagship(torch, card, workdir, config, dev):
+  """Phase 7: phase 4's checkpoint exported and served from a torch-only
+  process, against the eager EMA G; the tower's resize on the card."""
+  import statistics
+
+  from torch.func import functional_call
+
+  from xmcgan_image_generation_tpu_torch.engine.state import (
+      create_train_state,
+  )
+  from xmcgan_image_generation_tpu_torch.utils import checkpoint
+  from xmcgan_image_generation_tpu_torch.utils import pretrained
+  from xmcgan_image_generation_tpu_torch.utils import serving
+
+  print(f"phase 7: serving: export of phase 4's checkpoint "
+        f"({config.image_size}px G, EMA weights, {config.dtype}, symbolic "
+        f"batch; and int8), served at batches {list(SERVE_BATCHES)} from a "
+        f"torch-only process", flush=True)
+  paths = {}
+  for name, quantize in (("bf16", None), ("int8", "int8")):
+    t0 = time.perf_counter()
+    (paths[name],) = serving.export_from_workdir(config, workdir, device=dev,
+                                                 quantize=quantize)
+    print(f"  {name}: export_from_workdir (restore, export, save) "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{os.path.getsize(paths[name])} bytes ({card})", flush=True)
+  rng = torch.Generator().manual_seed(7)
+  inputs = {b: [x.to(dev) for x in (
+      torch.randn(b, serving.BERT_DIM, generator=rng),
+      torch.randn(b, serving.COCO_MAX_TEXT_LENGTH, serving.BERT_DIM,
+                  generator=rng),
+      torch.randint(3, serving.COCO_MAX_TEXT_LENGTH + 1, (b, 1),
+                    generator=rng).float(),
+      torch.randn(b, config.z_dim, generator=rng))] for b in SERVE_BATCHES}
+  inputs_path = os.path.join(workdir, "serving", "inputs.pt")
+  out_path = os.path.join(workdir, "serving", "images.pt")
+  torch.save(inputs, inputs_path)
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+      [sys.executable, "-c", _SERVE_SCRIPT, inputs_path, out_path,
+       str(SERVE_STEPS), str(SERVE_WINDOWS), paths["bf16"], paths["int8"]],
+      capture_output=True, text=True, timeout=600, cwd=workdir, check=False)
+  if proc.returncode != 0:
+    fail(f"the serving process: {proc.stderr[-3000:]}")
+  report = json.loads(proc.stdout.strip().splitlines()[-1])
+  print(f"  serving process: {time.perf_counter() - t0:.2f} s in all "
+        f"(start, imports, loads, serving); modules of the repository or "
+        f"JAX loaded there: {report['loaded']}", flush=True)
+  if report["loaded"]:
+    fail(f"the serving process imported {report['loaded']}")
+  served = torch.load(out_path)
+
+  manager = checkpoint.CheckpointManager(checkpoint.checkpoints_dir(workdir))
+  state = manager.restore(manager.latest_step(),
+                          create_train_state(config, dev, seed=config.seed))
+  g = state.generator.eval()
+  dtype = g.dtype
+
+  def eager(x):
+    cond = dict(zip(("sentence_embedding", "embedding", "max_len"),
+                    (v.to(dtype) for v in x[:3])))
+    return functional_call(g, state.ema_params, (cond, x[3].to(dtype)))
+
+  for b, x in inputs.items():
+    with torch.no_grad():
+      want = eager(x).float()
+      eager_ms = [time_ms(lambda: eager(x), SERVE_STEPS)
+                  for _ in range(SERVE_WINDOWS)]
+    got = served[(paths["bf16"], b)]
+    int8 = served[(paths["int8"], b)]
+    if got.shape != (b, config.image_size, config.image_size, 3) or (
+        got.dtype != torch.float32):
+      fail(f"batch {b}: served images {tuple(got.shape)} {got.dtype}")
+    if not (bool(torch.isfinite(got).all()) and float(got.min()) >= 0
+            and float(got.max()) <= 1):
+      fail(f"batch {b}: served images outside [0, 1]")
+    err = float((got - want).abs().max())
+    equal = float((got == want).float().mean())
+    int8_dev = float((int8 - got).abs().max())
+    print(f"  batch {b}: bf16 artifact against the eager EMA G: max |diff| "
+          f"{err:.3e} (tolerance {SERVE_ATOL}), {equal:.4f} of pixels "
+          f"equal; int8 against bf16 max |diff| {int8_dev:.4f}", flush=True)
+    if err > SERVE_ATOL:
+      fail(f"batch {b}: the served images differ from eager G by {err}")
+    for name in ("bf16", "int8"):
+      entry = report[paths[name]]["batches"][str(b)]
+      ms = statistics.median(entry["ms_windows"])
+      print(f"    {name} artifact: {ms:.3f} ms a request (median of "
+            f"{SERVE_WINDOWS} windows of {SERVE_STEPS}; windows "
+            f"{[round(v, 3) for v in entry['ms_windows']]}), "
+            f"{b / ms * 1e3:.2f} images/s; first call "
+            f"{entry['first_call_seconds']:.3f} s", flush=True)
+    ms = statistics.median(eager_ms)
+    print(f"    eager EMA G: {ms:.3f} ms a request, {b / ms * 1e3:.2f} "
+          f"images/s ({card})", flush=True)
+  for name in ("bf16", "int8"):
+    print(f"  {name} artifact loaded in "
+          f"{report[paths[name]]['load_seconds']:.2f} s", flush=True)
+
+  # The tower's input resize (``utils/pretrained.py``) at the 256 px
+  # configuration's 256 -> 224, where it antialiases: the card's result
+  # against the CPU's on the same images, within the 1e-5 that holds the
+  # CPU result to ``jax.image.resize`` in tests/test_torch_pretrained.py.
+  images = torch.rand(8, 256, 256, 3, generator=torch.Generator()
+                      .manual_seed(3))
+  want = pretrained.resize_for_tower(images)
+  got = pretrained.resize_for_tower(images.to(dev)).cpu()
+  err = float((got - want).abs().max())
+  print(f"  tower resize 256 -> 224 (antialiased) on the card against the "
+        f"CPU: max |diff| {err:.3e} (tolerance 1e-5)", flush=True)
+  if not err <= 1e-5:
+    fail(f"the tower's resize on the card differs from the CPU's by {err}")
+
+
 def main() -> None:
   try:
     import torch
@@ -1379,6 +1551,7 @@ def main() -> None:
     timed("phase 4b", real_data_phase, torch, card, dev)
     timed("phase 5", check_resume, torch, dev)
     timed("phase 6", evaluate_flagship, torch, card, workdir, config, dev)
+    timed("phase 7", serve_flagship, torch, card, workdir, config, dev)
 
   print(json.dumps({"kernels": list(records.values())}))
   print(card)

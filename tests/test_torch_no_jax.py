@@ -89,7 +89,8 @@ def test_port_trains_without_jax(tmp_path):
                "data.pipeline", "data.prefetch", "data.png", "data.resize",
                "data.records", "data.sources", "utils.preemption",
                "engine.registry", "utils.tb_writer", "utils.metric_writer",
-               "configs.coco_xmc_256"):
+               "configs.coco_xmc_256", "utils.serving", "utils.pretrained",
+               "export_serving", "serving_bench"):
     assert f"xmcgan_image_generation_tpu_torch.{name}" in result["modules"]
   lines = (tmp_path / "metrics.jsonl").read_text().splitlines()
   record = json.loads(lines[-1])   # the loss line, written after progress

@@ -1,14 +1,17 @@
 """Command line: ``python -m xmcgan_image_generation_tpu_torch.main
 --workdir=DIR [--config=default|test|FILE[:VARIANT]]
-[--mode=train|test|generate]
+[--mode=train|test|generate|export]
 [--device=cuda] [--data_source=tfrecord|synthetic] [--data_dir=DIR]
 [--coco_version=2014] [--num_train_steps=N] [--config.KEY=VALUE ...]``.
 
 ``--mode=train`` trains (resuming from the workdir's checkpoints),
 ``--mode=test`` runs the checkpoint-polling FID/IS service against the
-same workdir and ``--mode=generate`` writes sample grids from its latest
-checkpoint.  Each runs on the CUDA card unless ``--device=cpu`` is given,
-and fails when there is no card.  The configuration is
+same workdir, ``--mode=generate`` writes sample grids from its latest
+checkpoint and ``--mode=export`` writes a serving artifact of its EMA
+weights (`utils.serving.export_from_workdir`:
+``{workdir}/serving/generator_ema_step{N:08d}.pt2`` and ``.json``).  Each
+runs on the CUDA card unless ``--device=cpu`` is given, and fails when
+there is no card.  The configuration is
 `configs.coco_xmc.get_config` (``default``, ``test``) or, as with the JAX
 package's config files, ``get_config(VARIANT)`` of a port config file
 (``--config=xmcgan_image_generation_tpu_torch/configs/coco_xmc_256.py``,
@@ -76,7 +79,7 @@ def main(argv=None) -> None:
   parser.add_argument("--workdir", required=True)
   parser.add_argument("--config", default="default")
   parser.add_argument("--mode", default="train",
-                      choices=("train", "test", "generate"))
+                      choices=("train", "test", "generate", "export"))
   parser.add_argument("--device", default="cuda")
   parser.add_argument("--num_train_steps", type=int, default=None)
   parser.add_argument("--data_source", default=None,
@@ -95,9 +98,14 @@ def main(argv=None) -> None:
   elif args.mode == "test":
     from xmcgan_image_generation_tpu_torch import evaluate as eval_lib
     eval_lib.evaluate_continuously(config, args.workdir, args.device)
-  else:
+  elif args.mode == "generate":
     from xmcgan_image_generation_tpu_torch import generate as gen_lib
     gen_lib.generate(config, args.workdir, args.device)
+  else:
+    from xmcgan_image_generation_tpu_torch.utils import serving
+    for path in serving.export_from_workdir(config, args.workdir,
+                                            device=args.device):
+      logging.info("Wrote serving artifact %s", path)
 
 
 if __name__ == "__main__":

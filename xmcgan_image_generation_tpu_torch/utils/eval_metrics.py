@@ -51,6 +51,9 @@ def make_inception_fn(ckpt_path: Optional[str] = None,
   def features(images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     images = images.float()
     if images.shape[1:3] != (INCEPTION_SIZE, INCEPTION_SIZE):
+      # No antialiasing: every image size of the configurations (at most
+      # 256) grows to 299, where ``jax.image.resize`` does not antialias
+      # either (utils/pretrained.py shrinks 256 -> 224 and must).
       images = F.interpolate(
           images.permute(0, 3, 1, 2), size=(INCEPTION_SIZE, INCEPTION_SIZE),
           mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
