@@ -66,7 +66,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    EMA G on the same inputs, prints the int8-vs-bf16 deviation, the bytes,
    ms per request and images/s; and holds the ResNet-50 tower's
    antialiased 256 -> 224 resize on the card against the CPU's;
-8. prints the kernel records as one JSON line, the card line, and last
+8. data parallelism (``parallel/``): (a) holds kernels B, C and D against
+   their plain versions at the shapes the sharded word-score dispatch
+   gives them (images x captions a process: 28 x 56 at the flagship over
+   2 processes, 64 x 128 at the 256 px microbatch), two calls of C and D
+   bit for bit, timed and bounded (records ``sharded_<I>x<C>``: the
+   launches of 28 x 56 are those of (b)'s step, with the op check's under
+   ``launches_in_op_check``; 64 x 128 runs in no phase, its launches are
+   null); (b) spawns two processes on the one card, joined over gloo
+   (NCCL refuses two ranks on one device), that take one flagship outer
+   step in float32 with deterministic cuDNN on their halves of a fixed 2
+   x 56 super-batch, and holds them to the one-process step on the same
+   super-batch (losses 1e-4 relative; the gradients of the critic update
+   and of the joint update alone, each from the seed's state and read
+   from Adam's first moment, within 2e-3 of their norm by network, beside
+   the one-process step's own change when z moves by a float32 rounding;
+   parameters and buffers within ``tests/test_torch_step.py``'s
+   tolerances), checks that
+   both replicas' parameters, Adam moments, ``u0``, BatchNorm statistics
+   and EMA are bit for bit equal, that A, B and C launched on each
+   process, and the sharded word
+   scores with both gradients (B, C, D and the word gradient's sum over
+   processes) against the one-process op; prints each process's
+   collective calls and bytes in the step; (c) starts a world-size-1
+   NCCL group and takes one test-config step through the collectives
+   against the same step without a group; the kernels are built in the
+   parent first;
+9. prints the kernel records as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.  Any failed phase exits non-zero before
@@ -185,19 +211,22 @@ def set_bound(record, nbytes, ops, rate):
   return t_bytes * 1e3, ops / PEAK_OPS_PER_S["float32"] * 1e3
 
 
-def word_scores_bounds(records, n, regions, words, dim, saved_bytes):
+def word_scores_bounds(records, n, regions, words, dim, saved_bytes,
+                       captions=None):
   """Bytes and operations of kernels B, C and D at these shapes (float32,
-  n images and n captions).  B forms S = rn wn^T, the Gram matrix rn rn^T
-  and G alpha; reads rn, wn and the mask; writes the scores and the
-  record.  C forms E wn, H = alpha diag(b) alpha^T and H rn; reads rn, wn,
-  the mask, g and the record; writes d_rn.  D forms E^T rn; reads rn, the
-  mask, g and the record; writes d_wn.  All three take the 3xTF32 route.
-  Returns each kernel's bytes-bound and float32-FMA-bound ms."""
-  rn, wn = 4 * n * regions * dim, 4 * n * words * dim
-  mask, scores = 4 * n * words, 4 * n * n       # g is the size of scores
-  sim = 2 * n * n * regions * words * dim       # one [R, L, D] product per pair
+  n images and n captions, or ``captions`` captions).  B forms S = rn
+  wn^T, the Gram matrix rn rn^T and G alpha; reads rn, wn and the mask;
+  writes the scores and the record.  C forms E wn, H = alpha diag(b)
+  alpha^T and H rn; reads rn, wn, the mask, g and the record; writes d_rn.
+  D forms E^T rn; reads rn, the mask, g and the record; writes d_wn.  All
+  three take the 3xTF32 route.  Returns each kernel's bytes-bound and
+  float32-FMA-bound ms."""
+  c = n if captions is None else captions
+  rn, wn = 4 * n * regions * dim, 4 * c * words * dim
+  mask, scores = 4 * c * words, 4 * n * c       # g is the size of scores
+  sim = 2 * n * c * regions * words * dim       # one [R, L, D] product per pair
   gram = 2 * n * regions * regions * dim
-  g_alpha = 2 * n * n * words * regions * regions
+  g_alpha = 2 * n * c * words * regions * regions
   return {
       "word_scores_fwd": set_bound(
           records["word_scores_fwd"], rn + wn + mask + scores + saved_bytes,
@@ -1455,6 +1484,456 @@ def serve_flagship(torch, card, workdir, config, dev):
     fail(f"the tower's resize on the card differs from the CPU's by {err}")
 
 
+SHARDED_SHAPES = ((28, 56), (64, 128))   # images x captions a process
+DDP_WORLD = 2
+
+
+def check_kernels_sharded(torch, records):
+  """Phase 8a: kernels B, C and D against their plain versions at the
+  shapes the sharded dispatch gives them (each process's images against
+  every caption: I = B/N, C = B for the flagship's 56 and the 256 px
+  microbatch's 128 over 2 processes), two calls of C and D bit for bit,
+  timed and bounded; kept in each record under ``sharded_<I>x<C>``."""
+  from xmcgan_image_generation_tpu_torch.ops.attention import padding_mask
+  from xmcgan_image_generation_tpu_torch.ops.contrastive import l2_normalize
+  from xmcgan_image_generation_tpu_torch.ops.cuda import word_scores as ws
+
+  dev = torch.device("cuda")
+  gen = torch.Generator(device=dev).manual_seed(8)
+  regions, words, dim = 256, 17, 768
+  g1 = g2 = 5.0
+  for images, captions in SHARDED_SHAPES:
+    label = f"I = {images}, C = {captions}"
+    max_len = torch.randint(3, words + 1, (captions, 1), device=dev,
+                            generator=gen)
+    mask = padding_mask(max_len.float(), words).contiguous()
+    wn = l2_normalize(torch.randn(captions, words, dim, device=dev,
+                                  generator=gen)).contiguous()
+    rn = l2_normalize(torch.randn(images, regions, dim, device=dev,
+                                  generator=gen)).contiguous()
+    g = torch.randn(captions, images, device=dev, generator=gen)
+    saved = ws.new_saved(rn, wn)
+    out = {name: {"library_ms": None} for name in (
+        "word_scores_fwd", "word_scores_drn", "word_scores_dwn")}
+    got = ws.scores(rn, wn, mask, g1, g2, saved)
+    errs = {"word_scores_fwd": (
+        float((got - ws.scores_plain(rn, wn, mask, g1, g2)).abs().max()),
+        1e-4)}
+    for name, fn, plain in (("word_scores_drn", ws.drn, ws.drn_plain),
+                            ("word_scores_dwn", ws.dwn, ws.dwn_plain)):
+      d_got = fn(rn, wn, mask, g, saved, g1, g2)
+      d_again = fn(rn, wn, mask, g, saved, g1, g2)
+      d_want = plain(rn, wn, mask, g, g1, g2)
+      if not torch.equal(d_got, d_again):
+        fail(f"two {name} calls differ at {label}")
+      errs[name] = (float((d_got - d_want).abs().max()),
+                    1e-4 * float(d_want.abs().max()))
+    for name, (err, tol) in errs.items():
+      print(f"  {name}, {label}: max|kernel - plain| = {err:.3e} "
+            f"(tolerance {tol:.1e}) {'ok' if err <= tol else 'FAIL'}",
+            flush=True)
+      if err > tol:
+        fail(f"{name} disagrees with its plain version at {label}")
+      out[name]["max_abs_err"] = err
+    x = rn.clone().requires_grad_()
+    s_plain = ws.scores_plain(x, wn, mask, g1, g2)
+    y = wn.clone().requires_grad_()
+    s_plain_w = ws.scores_plain(rn, y, mask, g1, g2)
+    out["word_scores_fwd"]["ms"] = time_ms(
+        lambda: ws.scores(rn, wn, mask, g1, g2, saved))
+    out["word_scores_fwd"]["plain_ms"] = time_ms(
+        lambda: ws.scores_plain(rn, wn, mask, g1, g2))
+    out["word_scores_drn"]["ms"] = time_ms(
+        lambda: ws.drn(rn, wn, mask, g, saved, g1, g2))
+    out["word_scores_drn"]["plain_ms"] = time_ms(
+        lambda: torch.autograd.grad(s_plain, x, g.t(), retain_graph=True))
+    out["word_scores_dwn"]["ms"] = time_ms(
+        lambda: ws.dwn(rn, wn, mask, g, saved, g1, g2))
+    out["word_scores_dwn"]["plain_ms"] = time_ms(
+        lambda: torch.autograd.grad(s_plain_w, y, g.t(), retain_graph=True))
+    del s_plain, s_plain_w
+    word_scores_bounds(out, images, regions, words, dim,
+                       saved.numel() * saved.element_size(),
+                       captions=captions)
+    for name, rec in out.items():
+      # Phase 8b's step runs the flagship's shape and records its counts;
+      # no phase runs the 256 px microbatch over two processes.
+      rec["launches"] = None
+      records[name][f"sharded_{images}x{captions}"] = rec
+      print(f"  {name}, {label}: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']})", flush=True)
+
+
+def ddp_config():
+  """The flagship configuration in float32 for one outer step."""
+  config = flagship_config()
+  config.update(dtype="float32", num_train_steps=1)
+  return config
+
+
+def ddp_super_batch(config):
+  import numpy as np
+
+  from xmcgan_image_generation_tpu_torch.data import synthetic
+
+  return synthetic.super_batch(config, np.random.default_rng(0))
+
+
+def ddp_step(torch, config, host_batch, dev):
+  """One outer step from the seed's state on this process's host rows;
+  returns the state, the losses, what it launched and communicated
+  (every count set to 0 just before the step, read just after) and its
+  seconds (host clock, the card synchronized)."""
+  from xmcgan_image_generation_tpu_torch.engine import xmc_gan
+  from xmcgan_image_generation_tpu_torch.engine.state import (
+      broadcast_state,
+      create_train_state,
+  )
+  from xmcgan_image_generation_tpu_torch.engine.step import train_step
+  from xmcgan_image_generation_tpu_torch.ops.cuda import ntxent
+  from xmcgan_image_generation_tpu_torch.ops.cuda import word_scores as ws
+  from xmcgan_image_generation_tpu_torch.parallel import collectives
+
+  state = create_train_state(config, dev, seed=config.seed)
+  additional = xmc_gan.create_additional_data(config, dev)
+  broadcast_state(state)
+  batch = {k: torch.from_numpy(v).to(dev) for k, v in host_batch.items()}
+  counters = {"ntxent": ntxent.ntxent_stats, "ntxent_bwd": ntxent.ntxent_bwd,
+              "word_scores_fwd": ws.scores, "word_scores_drn": ws.drn,
+              "word_scores_dwn": ws.dwn}
+  torch.cuda.synchronize()
+  for fn in counters.values():
+    fn.launches = 0
+  collectives.reset_counts()
+  start = time.perf_counter()
+  _, metrics = train_step(state, batch, config, additional)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - start
+  launches = {name: fn.launches for name, fn in counters.items()}
+  comm = collectives.counts()
+  losses = {k: float(v) for k, v in metrics.items()}
+  return state, losses, launches, comm, seconds
+
+
+def state_tensors(state):
+  """Parameters and buffers (BatchNorm statistics, ``u0``) of G and D,
+  and the EMA, by name."""
+  out = {}
+  for tag, module in (("G", state.generator), ("D", state.discriminator)):
+    for name, t in module.state_dict().items():
+      out[f"{tag}/{name}"] = t
+  for name, t in state.ema_params.items():
+    out[f"EMA/{name}"] = t
+  return out
+
+
+def adam_gradients(state, beta1):
+  """Each network's gradients as Adam's first moment reads them,
+  ``mu / (1 - beta1)``: G's joint-update gradient (one update), D's
+  ``beta1 g_critic + g_joint`` (two), by name."""
+  out = {}
+  for tag, module, opt in (("G", state.generator, state.g_opt),
+                           ("D", state.discriminator, state.d_opt)):
+    for name, p in module.named_parameters():
+      if p in opt.state:
+        out[f"{tag}/{name}"] = opt.state[p]["exp_avg"] / (1 - beta1)
+  return out
+
+
+def ddp_tolerance(name, ref):
+  """``tests/test_torch_step.py``'s tolerances for one outer step:
+  parameters 2 lr per Adam step (G one step at 1e-4, D two at 4e-4),
+  ``u0`` 1e-3, batch statistics 1e-4 relative and 1e-5 absolute, the
+  EMA a tenth of G's."""
+  if name.startswith("G/") and name.endswith((".mean", ".var")):
+    return 1e-5 + 1e-4 * float(ref.abs().max())
+  if name.startswith("D/") and name.endswith(".u0"):
+    return 1e-3
+  return {"G": 2e-4, "D": 2 * 4e-4 * 2, "EMA": 2e-5}[name.split("/")[0]]
+
+
+def update_gradients(torch, config, host_batch, dev):
+  """Each update's gradients from the seed's state, read from Adam's
+  first moment after that one update: D's in the critic update on
+  sub-batch 0 (``critic/D/...``), G's and D's in the joint update alone
+  on the last sub-batch (``joint/G/...``, ``joint/D/...``).  Each starts
+  from the seed's state, so that Adam's first step, which moves a
+  parameter by about lr whatever its gradient's size, does not carry one
+  update's float noise into the next's gradients."""
+  from xmcgan_image_generation_tpu_torch.engine import registry
+  from xmcgan_image_generation_tpu_torch.engine import xmc_gan
+  from xmcgan_image_generation_tpu_torch.engine.state import (
+      broadcast_state,
+      create_train_state,
+  )
+  from xmcgan_image_generation_tpu_torch.engine.step import split_batch
+  from xmcgan_image_generation_tpu_torch.parallel import collectives
+
+  gan_model = registry.get_gan_algorithm(config)
+  batch = {k: torch.from_numpy(v).to(dev) for k, v in host_batch.items()}
+  subs = split_batch(collectives.gather_batch(batch),
+                     config.d_step_per_g_step)
+  out = {}
+  for label in ("critic", "joint"):
+    state = create_train_state(config, dev, seed=config.seed)
+    broadcast_state(state)
+    if label == "critic":
+      gan_model.train_d(state, subs[0], config)
+    else:
+      gan_model.train_g_d(state, subs[-1], config,
+                          xmc_gan.create_additional_data(config, dev))
+    for name, g in adam_gradients(state, config.beta1).items():
+      if label == "joint" or name.startswith("D/"):
+        out[f"{label}/{name}"] = g
+    del state
+  return out
+
+
+# The largest relative gap allowed between two runs' gradients of one
+# update's network (`gradient_gaps`).
+GRADIENT_GAP = 2e-3
+
+
+def gradient_gaps(got, want):
+  """``|got - want| / |want|`` over each update's network's gradients
+  taken as one vector (``critic/D``, ``joint/G``, ``joint/D`` of
+  `update_gradients`), Euclidean norms."""
+  sums = {}
+  for name, w in want.items():
+    total = sums.setdefault(name.rsplit("/", 1)[0], [0.0, 0.0])
+    total[0] += float((got[name].float() - w.float()).square().sum())
+    total[1] += float(w.float().square().sum())
+  return {group: (d / w) ** 0.5 for group, (d, w) in sums.items()}
+
+
+def _ddp_child(rank, port, tmp):
+  """Phase 8b's process ``rank`` of two on one card (gloo)."""
+  import torch
+
+  from xmcgan_image_generation_tpu_torch.ops.attention import padding_mask
+  from xmcgan_image_generation_tpu_torch.ops.cuda import word_scores as ws
+  from xmcgan_image_generation_tpu_torch.parallel import collectives
+  from xmcgan_image_generation_tpu_torch.parallel.mesh import MeshRules
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cudnn.deterministic = True
+  rules = MeshRules.create(-1, 1, device="cuda:0", rank=rank,
+                           world_size=DDP_WORLD, backend="gloo",
+                           init_method=f"tcp://127.0.0.1:{port}")
+  mesh, dev = rules.mesh, rules.mesh.device
+  config = ddp_config()
+  full = ddp_super_batch(config)
+  rows = next(iter(full.values())).shape[0] // DDP_WORLD
+  host = {k: v[rank * rows:(rank + 1) * rows] for k, v in full.items()}
+  state, losses, launches, comm, step_s = ddp_step(torch, config, host,
+                                                   dev)
+  grads = adam_gradients(state, config.beta1)
+  tensors = dict(state_tensors(state),
+                 **{f"grad/{k}": v for k, v in grads.items()})
+
+  # Replicas bit for bit: the elementwise max and min over the processes
+  # equal this process's values.
+  names = list(tensors)
+  flat = torch.cat([tensors[n].detach().float().reshape(-1) for n in names])
+  hi = collectives.all_reduce(flat, "max", mesh)
+  lo = -collectives.all_reduce(-flat, "max", mesh)
+  differ = (hi != flat) | (lo != flat)
+  sizes = [tensors[n].numel() for n in names]
+  differing = [n for n, d in zip(names, differ.split(sizes)) if bool(d.any())]
+  del flat, hi, lo, differ
+  # Every process takes part: the updates run the collectives.
+  update_grads = update_gradients(torch, config, host, dev)
+
+  result = dict(rank=rank, losses=losses, launches=launches, comm=comm,
+                step_seconds=step_s, differing=differing[:10],
+                num_differing=len(differing))
+  if rank == 0:
+    ref = torch.load(os.path.join(tmp, "world1.pt"), weights_only=True)
+    worst, worst_name = 0.0, None
+    for name, t in state_tensors(state).items():
+      want = ref["tensors"][name].to(dev)
+      err = float((t.detach().float() - want.float()).abs().max())
+      ratio = err / ddp_tolerance(name, want)
+      if ratio > worst:
+        worst, worst_name = ratio, name
+    result.update(param_worst_ratio=worst, param_worst_name=worst_name,
+                  grad_gaps=gradient_gaps(update_grads, {
+                      k: v.to(dev) for k, v in ref["grads"].items()}),
+                  loss_rel={k: abs(v - ref["losses"][k]) / max(
+                      abs(ref["losses"][k]), 1e-6)
+                      for k, v in losses.items()})
+  del state, tensors, grads, update_grads
+
+  # The sharded word scores with both gradients (kernels B, C and D and
+  # the word gradient's sum over processes) at the flagship's 56, held to
+  # the one-process op on every process's rows.
+  gen = torch.Generator(device=dev).manual_seed(80)
+  b, regions, words, dim = 56, 256, 17, 768
+  region = torch.randn(b, regions, dim, device=dev, generator=gen)
+  word = torch.randn(b, words, dim, device=dev, generator=gen)
+  max_len = torch.randint(3, words + 1, (b, 1), device=dev,
+                          generator=gen).float()
+  g = torch.randn(b, b, device=dev, generator=gen)
+  mask = padding_mask(max_len, words)
+  counters = {"word_scores_fwd": ws.scores, "word_scores_drn": ws.drn,
+              "word_scores_dwn": ws.dwn}
+  for fn in counters.values():
+    fn.launches = 0
+  local = slice(rank * b // DDP_WORLD, (rank + 1) * b // DDP_WORLD)
+  x = region[local].clone().requires_grad_()
+  y = word[local].clone().requires_grad_()
+  scores = ws.make_sharded_word_scores(mesh)(x, y, mask[local])
+  scores.backward(g)
+  torch.cuda.synchronize()
+  result["sharded_launches"] = {n: fn.launches for n, fn in counters.items()}
+  x1 = region.clone().requires_grad_()
+  y1 = word.clone().requires_grad_()
+  want = ws.word_scores(x1, y1, mask)
+  want.backward(g)
+  errs = {}
+  for what, got, ref_t in (("scores", scores.detach(), want.detach()),
+                           ("d_region", x.grad, x1.grad[local]),
+                           ("d_word", y.grad, y1.grad[local])):
+    errs[what] = (float((got - ref_t).abs().max()),
+                  (1e-5 if what == "scores" else
+                   1e-4 * float(ref_t.abs().max())))
+  result["sharded_errors"] = errs
+  with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+    json.dump(result, f)
+  rules.shutdown()
+
+
+def _free_port():
+  import socket
+
+  with socket.socket() as sock:
+    sock.bind(("127.0.0.1", 0))
+    return sock.getsockname()[1]
+
+
+def check_nccl_world1(torch):
+  """Phase 8c: a world-size-1 NCCL group, and one test-config step
+  through the collectives, against the same step without a group."""
+  from xmcgan_image_generation_tpu_torch.configs import coco_xmc
+  from xmcgan_image_generation_tpu_torch.parallel import collectives
+  from xmcgan_image_generation_tpu_torch.parallel.mesh import MeshRules
+
+  config = coco_xmc.get_test_config()
+  config.update(dtype="float32", scale_fused_convs=True, batch_size=8,
+                use_pallas=True)
+  host = ddp_super_batch(config)
+  dev = torch.device("cuda")
+  _, plain, _, _, _ = ddp_step(torch, config, host, dev)
+  rules = MeshRules.create(-1, 1, device="cuda", rank=0, world_size=1,
+                           backend="nccl",
+                           init_method=f"tcp://127.0.0.1:{_free_port()}")
+  try:
+    _, losses, launches, comm, _ = ddp_step(torch, config, host,
+                                            rules.mesh.device)
+  finally:
+    rules.shutdown()
+  worst = max(abs(losses[k] - plain[k]) / max(abs(plain[k]), 1e-6)
+              for k in plain)
+  calls = sum(c["calls"] for c in comm.values())
+  print(f"phase 8c: NCCL world size 1 ({rules.mesh.backend}): test-config "
+        f"step through {calls} collectives {json.dumps(comm)}; launches "
+        f"{json.dumps(launches)}; max relative loss difference to the step "
+        f"without a group {worst:.3e} (tolerance 1e-4)", flush=True)
+  if worst > 1e-4 or not calls or launches["word_scores_fwd"] <= 0:
+    fail("the NCCL world-1 step disagrees or ran no collective or kernel")
+
+
+def ddp_phase(torch, card, records):
+  """Phase 8b: two processes on the one card over gloo (NCCL refuses two
+  ranks on one device) take one flagship outer step in float32 with
+  deterministic cuDNN on the fixed 2 x 56 super-batch, each on its host
+  rows; held to the one-process step on the same super-batch.  Two
+  processes on one card give no multi-GPU speed: this checks the
+  semantics and the collectives on the card."""
+  import torch.multiprocessing as mp
+
+  config = ddp_config()
+  dev = torch.device("cuda")
+  torch.backends.cudnn.deterministic = True
+  state, losses, launches1, _, world1_s = ddp_step(
+      torch, config, ddp_super_batch(config), dev)
+  tensors = {k: v.detach().cpu() for k, v in state_tensors(state).items()}
+  del state
+  host = ddp_super_batch(config)
+  grads = update_gradients(torch, config, host, dev)
+  # The one-process step's own sensitivity: z moved by a float32 rounding.
+  nudged = dict(host, z=(host["z"] * (1 + 1e-6)).astype(host["z"].dtype))
+  sensitivity = gradient_gaps(
+      update_gradients(torch, config, nudged, dev), grads)
+  grads = {k: v.cpu() for k, v in grads.items()}
+  torch.backends.cudnn.deterministic = False
+  with tempfile.TemporaryDirectory() as tmp:
+    torch.save({"losses": losses, "tensors": tensors, "grads": grads},
+               os.path.join(tmp, "world1.pt"))
+    del tensors, grads
+    torch.cuda.empty_cache()
+    mp.start_processes(_ddp_child, args=(_free_port(), tmp),
+                       nprocs=DDP_WORLD, start_method="spawn")
+    results = []
+    for rank in range(DDP_WORLD):
+      with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+        results.append(json.load(f))
+  r0 = results[0]
+  print(f"  world 1: losses {json.dumps(losses)}; launches "
+        f"{json.dumps(launches1)}; step {world1_s:.3f} s ({card})",
+        flush=True)
+  for res in results:
+    print(f"  rank {res['rank']}: losses {json.dumps(res['losses'])}; "
+          f"launches {json.dumps(res['launches'])}; step "
+          f"{res['step_seconds']:.3f} s; tensors differing from the other "
+          f"rank: {res['num_differing']} {res['differing']}", flush=True)
+    print(f"  rank {res['rank']}: collectives in the outer step "
+          f"{json.dumps(res['comm'])}", flush=True)
+  worst_loss = max(r0["loss_rel"].values())
+  gaps = r0["grad_gaps"]
+  print(f"  world 2 against world 1: max relative loss difference "
+        f"{worst_loss:.3e} (tolerance 1e-4); gradients of the critic "
+        f"update and of the joint update alone, from the seed's state "
+        f"(Adam's mu / (1 - beta1)), |difference| / |world 1| by network "
+        f"{json.dumps(gaps)} (tolerance {GRADIENT_GAP:.0e}); world 1 "
+        f"itself with z scaled by 1 + 1e-6: {json.dumps(sensitivity)}; "
+        f"worst parameter / buffer max|difference| / tolerance "
+        f"{r0['param_worst_ratio']:.6f} ({r0['param_worst_name']}; "
+        f"tests/test_torch_step.py's tolerances)", flush=True)
+  for res in results:
+    for what, (err, tol) in res["sharded_errors"].items():
+      print(f"  rank {res['rank']}: make_sharded_word_scores, both "
+            f"gradients, {what} against the one-process op: {err:.3e} "
+            f"(tolerance {tol:.1e}); launches "
+            f"{json.dumps(res['sharded_launches'])}", flush=True)
+      if err > tol:
+        fail(f"rank {res['rank']}: sharded word scores' {what} disagrees")
+  if (worst_loss > 1e-4 or max(gaps.values()) > GRADIENT_GAP
+      or r0["param_worst_ratio"] > 1.0):
+    fail("the two-process step disagrees with the one-process step")
+  if any(res["num_differing"] for res in results):
+    fail("the two replicas differ after one step")
+  if any(res["losses"] != r0["losses"] for res in results):
+    fail("the ranks report different losses")
+  for name in ("ntxent", "ntxent_bwd", "word_scores_fwd", "word_scores_drn"):
+    for res in results:
+      if res["launches"][name] <= 0:
+        fail(f"rank {res['rank']}: kernel {name} was not launched")
+  for res in results:
+    if min(res["sharded_launches"].values()) <= 0:
+      fail(f"rank {res['rank']}: the sharded op launched "
+           f"{res['sharded_launches']}")
+  images, captions = SHARDED_SHAPES[0]
+  for name in ("word_scores_fwd", "word_scores_drn", "word_scores_dwn"):
+    sub = records[name][f"sharded_{images}x{captions}"]
+    sub["launches"] = r0["launches"][name]
+    sub["launches_per_rank"] = [res["launches"][name] for res in results]
+    sub["launches_in_op_check"] = [res["sharded_launches"][name]
+                                   for res in results]
+
+
 def main() -> None:
   try:
     import torch
@@ -1552,6 +2031,13 @@ def main() -> None:
     timed("phase 5", check_resume, torch, dev)
     timed("phase 6", evaluate_flagship, torch, card, workdir, config, dev)
     timed("phase 7", serve_flagship, torch, card, workdir, config, dev)
+  print("phase 8a: kernels B, C and D at the sharded dispatch's shapes "
+        "(images x captions a process)", flush=True)
+  timed("phase 8a", check_kernels_sharded, torch, records)
+  print(f"phase 8b: data parallelism, {DDP_WORLD} processes on one card "
+        f"over gloo, one flagship outer step in float32", flush=True)
+  timed("phase 8b", ddp_phase, torch, card, records)
+  timed("phase 8c", check_nccl_world1, torch)
 
   print(json.dumps({"kernels": list(records.values())}))
   print(card)

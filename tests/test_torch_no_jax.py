@@ -4,7 +4,9 @@ where importing ``jax``, ``flax``, ``optax``, ``ml_collections`` or
 ``xmcgan_image_generation_tpu`` fails, import every module of the port and
 ``chip_smoke.py``, write a two-shard TFRecord dataset (and a validation
 shard) with the port's writer, and take one tiny CPU step through
-``train.train`` on it, the host helper and the PNG decoder included.  And
+``train.train`` on it, the host helper and the PNG decoder included, then
+a second step in a one-process gloo group, through the collectives of
+``parallel/``.  And
 ``chip_smoke.py`` refuses to run without a card."""
 
 import json
@@ -59,11 +61,25 @@ _SCRIPT = textwrap.dedent("""
     config.scale_fused_convs = True
     config.use_pallas = True
     state = train.train(config, sys.argv[1], "cpu")
+    # A second step in a one-process gloo group: through the collectives.
+    import socket
+    import torch.distributed as dist
+    from xmcgan_image_generation_tpu_torch.parallel import collectives
+    with socket.socket() as sock:
+      sock.bind(("127.0.0.1", 0))
+      port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    config.num_train_steps = 2
+    collectives.reset_counts()
+    state = train.train(config, sys.argv[1], "cpu")
+    calls = sum(c["calls"] for c in collectives.counts().values())
+    dist.destroy_process_group()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in BLOCKED + ("jaxlib",)
                     and sys.modules[m] is not None)
     print(json.dumps({"step": state.step, "loaded": loaded,
-                      "modules": modules}))
+                      "modules": modules, "collective_calls": calls}))
 """ % (_BLOCKED,))
 
 
@@ -81,7 +97,8 @@ def test_port_trains_without_jax(tmp_path):
       text=True, timeout=600, env=_env(), cwd=tmp_path, check=False)
   assert proc.returncode == 0, proc.stderr[-3000:]
   result = json.loads(proc.stdout.strip().splitlines()[-1])
-  assert result["step"] == 1 and result["loaded"] == []
+  assert result["step"] == 2 and result["loaded"] == []
+  assert result["collective_calls"] > 0
   # Every module of the port was imported, the new path's among them.
   for name in ("evaluate", "generate", "main", "models.inception_v3",
                "utils.checkpoint", "utils.eval_metrics", "utils.fid",
@@ -90,11 +107,12 @@ def test_port_trains_without_jax(tmp_path):
                "data.records", "data.sources", "utils.preemption",
                "engine.registry", "utils.tb_writer", "utils.metric_writer",
                "configs.coco_xmc_256", "utils.serving", "utils.pretrained",
-               "export_serving", "serving_bench"):
+               "export_serving", "serving_bench", "parallel.mesh",
+               "parallel.context", "parallel.collectives"):
     assert f"xmcgan_image_generation_tpu_torch.{name}" in result["modules"]
   lines = (tmp_path / "metrics.jsonl").read_text().splitlines()
   record = json.loads(lines[-1])   # the loss line, written after progress
-  assert record["step"] == 1
+  assert record["step"] == 2
   assert {"d_loss", "g_loss", "c_loss_d", "c_loss_g", "c_loss_g_pretrained",
           "seconds"} <= set(record)
 

@@ -20,6 +20,14 @@ package's for the same records, configuration and seed:
   in grain, and on nothing else.
 * Batches of ``batch_size * d_step_per_g_step`` (train) or
   ``eval_batch_size`` (eval) drop no remainder: the loaders never end.
+* Over ``N`` processes (grain's ``ShardByJaxProcess(drop_remainder=True)``,
+  ``ShardOptions(shard_index=r, shard_count=N, drop_remainder=True)``),
+  process ``r`` reads the records ``[r m, (r + 1) m)``, ``m = n // N``,
+  shuffled within that range (the permutation over ``m`` records, with the
+  same epoch seeds), and its local position ``k`` is grain's sampler
+  index ``k N + r``, which seeds its random draws.  Its batches are
+  ``batch_size // N * d_step_per_g_step`` (train) and ``eval_batch_size
+  // N`` (eval) examples.
 
 The state of a loader's iterator is the number of the next batch; the
 checkpoint keeps it.  Worker processes (``grain_worker_count``) are
@@ -191,26 +199,40 @@ class DataLoader:
 
   def __init__(self, source, transform: PreprocessTransform, *,
                batch_size: int, seed: int, shuffle: bool,
-               worker_count: int = 0):
+               worker_count: int = 0, shard_index: int = 0,
+               shard_count: int = 1):
     if len(source) <= 0:
       raise ValueError("the data source holds no records")
     if shuffle and not 0 <= seed < 2**32:
       raise ValueError("the shuffle needs a seed in [0, 2**32)")
+    if not 0 <= shard_index < shard_count:
+      raise ValueError(f"shard {shard_index} of {shard_count}")
     self.source = source
     self.transform = transform
     self.batch_size = batch_size
     self.seed = seed
     self.shuffle = shuffle
     self.worker_count = worker_count
+    self.shard_index = shard_index
+    self.shard_count = shard_count
+    # grain's even_split with drop_remainder: equal ranges, the rest unread.
+    self.shard_records = len(source) // shard_count
+    if self.shard_records <= 0:
+      raise ValueError(f"{len(source)} records do not fill {shard_count} "
+                       f"shards")
+    self.shard_start = shard_index * self.shard_records
     self._epoch_order: Tuple[int, Optional[np.ndarray]] = (-1, None)
 
   def __repr__(self) -> str:
+    shard = (f", shard={self.shard_index}/{self.shard_count}"
+             if self.shard_count > 1 else "")
     return (f"DataLoader({self.source!r}, batch_size={self.batch_size}, "
             f"seed={self.seed}, shuffle={self.shuffle}, "
-            f"worker_count={self.worker_count})")
+            f"worker_count={self.worker_count}{shard})")
 
   def positions(self, batch: int) -> np.ndarray:
-    """The global positions of batch number ``batch``'s examples."""
+    """The positions (in this shard) of batch number ``batch``'s
+    examples."""
     workers = max(self.worker_count, 1)
     worker, local = batch % workers, batch // workers
     local_positions = local * self.batch_size + np.arange(self.batch_size)
@@ -218,17 +240,21 @@ class DataLoader:
 
   def _permutation(self, epoch: int) -> np.ndarray:
     if self._epoch_order[0] != epoch:
-      n = len(self.source)
+      n = self.shard_records
       order = index_shuffle(np.arange(n), n - 1, (self.seed + epoch) % 2**32)
       self._epoch_order = (epoch, order.astype(np.int64))
     return self._epoch_order[1]
 
   def record_key(self, position: int) -> int:
-    epoch, index = divmod(int(position), len(self.source))
-    return int(self._permutation(epoch)[index]) if self.shuffle else index
+    epoch, index = divmod(int(position), self.shard_records)
+    if self.shuffle:
+      index = int(self._permutation(epoch)[index])
+    return self.shard_start + index
 
   def example(self, position: int) -> Dict[str, Any]:
-    rng = np.random.Generator(np.random.Philox(key=self.seed + int(position)))
+    # grain's sampler index of this shard's position seeds the draws.
+    index = int(position) * self.shard_count + self.shard_index
+    rng = np.random.Generator(np.random.Philox(key=self.seed + index))
     return self.transform(self.source[self.record_key(position)], rng)
 
   def batch(self, number: int) -> Batch:
@@ -355,7 +381,8 @@ class LoaderIterator:
 
 
 def _make_loader(config, split: str, *, seed: int, batch_size: int,
-                 shuffle: bool, return_text: bool) -> DataLoader:
+                 shuffle: bool, return_text: bool, shard_index: int,
+                 shard_count: int) -> DataLoader:
   transform = PreprocessTransform(
       image_size=config.image_size,
       z_dim=config.z_dim,
@@ -366,23 +393,45 @@ def _make_loader(config, split: str, *, seed: int, batch_size: int,
   )
   return DataLoader(_build_source(config, split), transform,
                     batch_size=batch_size, seed=seed, shuffle=shuffle,
-                    worker_count=config.get("grain_worker_count", 0))
+                    worker_count=config.get("grain_worker_count", 0),
+                    shard_index=shard_index, shard_count=shard_count)
 
 
-def create_datasets(config, seed: int) -> Tuple[DataLoader, DataLoader, int]:
-  """``(train_loader, eval_loader, num_train_examples)``.
+def create_datasets(config, seed: int, process_index: Optional[int] = None,
+                    process_count: Optional[int] = None
+                    ) -> Tuple[DataLoader, DataLoader, int]:
+  """``(train_loader, eval_loader, num_train_examples)`` of this process
+  (by default the ambient process mesh's rank and world size).
 
-  The train loader yields super-batches of ``batch_size *
-  d_step_per_g_step`` examples; the eval loader yields batches of
-  ``eval_batch_size`` with the seed ``seed + 1``, unshuffled.  Both
-  repeat without end.
+  The train loader yields host super-batches of ``batch_size //
+  process_count * d_step_per_g_step`` examples; the eval loader yields
+  host batches of ``eval_batch_size // process_count`` with the seed
+  ``seed + 1``, unshuffled.  Both repeat without end.
   """
+  from xmcgan_image_generation_tpu_torch.parallel import context
+
+  mesh = context.get_ambient_mesh()
+  if process_count is None:
+    process_count = 1 if mesh is None else mesh.world
+  if process_index is None:
+    process_index = 0 if mesh is None else mesh.rank
+  if config.batch_size % process_count:
+    raise ValueError(
+        f"Global batch size {config.batch_size} must be divisible by "
+        f"process count {process_count}.")
+  if config.eval_batch_size % process_count:
+    raise ValueError(
+        f"Eval batch size {config.eval_batch_size} must be divisible by "
+        f"process count {process_count}.")
+  shard = dict(shard_index=process_index, shard_count=process_count)
   train = _make_loader(
       config, "train", seed=seed,
-      batch_size=config.batch_size * config.d_step_per_g_step,
-      shuffle=config.train_shuffle, return_text=False)
+      batch_size=config.batch_size // process_count
+      * config.d_step_per_g_step,
+      shuffle=config.train_shuffle, return_text=False, **shard)
   evaluation = _make_loader(
-      config, "val", seed=seed + 1, batch_size=config.eval_batch_size,
-      shuffle=False, return_text=config.return_text)
+      config, "val", seed=seed + 1,
+      batch_size=config.eval_batch_size // process_count,
+      shuffle=False, return_text=config.return_text, **shard)
   return train, evaluation, len(train.source)
 

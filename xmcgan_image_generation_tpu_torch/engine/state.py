@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from xmcgan_image_generation_tpu_torch.models import get_architecture
+from xmcgan_image_generation_tpu_torch.parallel import collectives
 
 
 @dataclasses.dataclass
@@ -159,3 +160,18 @@ def create_train_state(config, device, seed: int = 0) -> TrainState:
          for name, p in generator.named_parameters()}
   return TrainState(step=0, generator=generator, discriminator=discriminator,
                     g_opt=g_opt, d_opt=d_opt, ema_params=ema)
+
+
+def broadcast_state(state: TrainState, src: int = 0) -> None:
+  """Overwrites ``state`` on every process of the ambient process group
+  with process ``src``'s: parameters, BatchNorm statistics, spectral-norm
+  ``u0``, the EMA and the Adam slots and counts, so that the replicas
+  start identical after creation or a restore.  No-op without a group."""
+  tensors = []
+  for module in (state.generator, state.discriminator):
+    tensors += list(module.parameters()) + list(module.buffers())
+  tensors += list(state.ema_params.values())
+  for opt in (state.g_opt, state.d_opt):
+    for slots in opt.state.values():
+      tensors += [v for v in slots.values() if torch.is_tensor(v)]
+  collectives.broadcast_(tensors, src=src)

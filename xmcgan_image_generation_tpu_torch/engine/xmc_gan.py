@@ -17,6 +17,17 @@ threads in sequence: microbatch i+1 sees the ``u0`` and G batch
 statistics that microbatch i wrote, so ``u0`` advances k times an update.
 The contrastive pools, the ResNet-50 term and the batch statistics are
 each microbatch's own: a capacity knob, not a large-batch emulation.
+
+Over a process group (`parallel`) the update functions take the global
+(sub-)batch, and each (micro)batch is cut to this process's rows
+(`engine.step.local_rows`) before the forward.  Every process computes
+the global losses (the logits and contrastive features are gathered,
+`parallel.collectives`), so the losses and metrics are the same on each;
+the gradients of a process's parameters come from its own rows and are
+summed over processes (`collectives.all_reduce_grads`, one flat-bucket
+``all_reduce`` a bucket) once per update, after the microbatches.
+``DistributedDataParallel`` is not used: its reducer hooks
+``.backward()``, and the updates take ``torch.autograd.grad``.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from xmcgan_image_generation_tpu_torch.ops.images import image_to_float
 from xmcgan_image_generation_tpu_torch.ops.normalization import (
     frozen_batch_stats,
 )
+from xmcgan_image_generation_tpu_torch.parallel import collectives
 from xmcgan_image_generation_tpu_torch.utils import pretrained
 
 Batch = Dict[str, torch.Tensor]
@@ -95,21 +107,33 @@ def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
   opt.zero_grad(set_to_none=True)
 
 
+def _global_logits(logit: torch.Tensor):
+  """(real, fake) logits of every process's rows."""
+  real_logit, fake_logit = logit.float().chunk(2)
+  return (collectives.all_gather(real_logit, tag="logits"),
+          collectives.all_gather(fake_logit, tag="logits"))
+
+
 def _accumulated(fn, batch: Batch, config):
   """``fn(microbatch) -> (grads, losses)`` over ``grad_accum_steps``
-  microbatches in turn: the mean gradients (each a tuple of tensors) and
-  the mean losses.  One microbatch (k = 1) is ``fn(batch)``."""
+  microbatches of the global ``batch`` in turn, each cut to this
+  process's rows: the mean gradients (each a tuple of tensors), summed
+  over processes, and the mean losses.  One microbatch (k = 1) is
+  ``fn(local_rows(batch))``."""
   from xmcgan_image_generation_tpu_torch.engine.step import (
+      local_rows,
       stack_microbatches,
   )
 
   k = int(config.get("grad_accum_steps", 1))
   if k <= 1:
-    return fn(batch)
+    grads, losses = fn(local_rows(batch))
+    return tuple(collectives.all_reduce_grads(g) for g in grads), losses
   micro = stack_microbatches(batch, k)
   grad_sums = loss_sums = None
   for i in range(k):
-    grads, losses = fn({name: x[i] for name, x in micro.items()})
+    grads, losses = fn(local_rows({name: x[i]
+                                   for name, x in micro.items()}))
     if grad_sums is None:
       # Fresh float32 sums: two parameters may be handed one gradient.
       grad_sums = tuple([g.to(torch.float32, copy=True) for g in part]
@@ -123,7 +147,8 @@ def _accumulated(fn, batch: Batch, config):
   for sums in grad_sums:
     for total in sums:
       total.div_(k)
-  return grad_sums, {name: v / k for name, v in loss_sums.items()}
+  return (tuple(collectives.all_reduce_grads(g) for g in grad_sums),
+          {name: v / k for name, v in loss_sums.items()})
 
 
 def _joint_grads(state: TrainState, batch: Batch, config,
@@ -135,7 +160,7 @@ def _joint_grads(state: TrainState, batch: Batch, config,
   fake_image = g_net(batch, _noise(batch, g_net.dtype))
   all_images = torch.cat([real_image, fake_image.float()])
   logit, stats = d_net(all_images, batch)
-  real_logit, fake_logit = logit.float().chunk(2)
+  real_logit, fake_logit = _global_logits(logit)
   c_loss_d, c_loss_g = contrastive_totals(stats)
   c_loss_g_pretrained = torch.zeros((), device=logit.device)
   if config.pretrained_image_contrastive:
@@ -155,8 +180,8 @@ def _joint_grads(state: TrainState, batch: Batch, config,
 def train_g_d(state: TrainState, batch: Batch, config,
               additional_data: Optional[Dict[str, Any]] = None
               ) -> Dict[str, torch.Tensor]:
-  """Joint G+D update on one sub-batch; updates ``state`` in place and
-  returns the five losses (means over the microbatches)."""
+  """Joint G+D update on one (global) sub-batch; updates ``state`` in
+  place and returns the five losses (means over the microbatches)."""
   additional_data = additional_data or {}
   g_net, d_net = state.generator, state.discriminator
   g_net.train()
@@ -184,7 +209,7 @@ def _critic_grads(state: TrainState, batch: Batch):
   all_images = torch.cat([image_to_float(batch["image"]),
                           fake_image.float()])
   logit, stats = d_net(all_images, batch, critic_only=True)
-  real_logit, fake_logit = logit.float().chunk(2)
+  real_logit, fake_logit = _global_logits(logit)
   c_loss_d, _ = contrastive_totals(stats)
   d_loss = losses.hinge_d(real_logit, fake_logit) + c_loss_d
   return (_grads(d_loss, list(d_net.parameters())),), {}

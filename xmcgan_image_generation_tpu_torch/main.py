@@ -23,6 +23,12 @@ package's ``tools/preprocess_coco.py`` writes, ``*{coco_version}*train
 sets any other key of the configuration, as the JAX package's command
 line does; the value is read as a Python literal
 (``--config.lr_schedule=cosine``, ``--config.grain_worker_count=4``).
+
+``torchrun --nproc_per_node=N -m xmcgan_image_generation_tpu_torch.main
+--mode=train ...`` trains one model over N processes, one device each
+(``cuda:LOCAL_RANK``, NCCL; with ``--device=cpu``, gloo), as the JAX
+package trains on an N-device ``data`` mesh (`train`).  The other modes
+run in one process: under ``WORLD_SIZE > 1`` they raise.
 """
 
 from __future__ import annotations
@@ -92,6 +98,12 @@ def main(argv=None) -> None:
   for key in ("num_train_steps", "data_source", "data_dir", "coco_version"):
     if getattr(args, key) is not None:
       config[key] = getattr(args, key)
+  world = int(os.environ.get("WORLD_SIZE", "1"))
+  if world > 1 and args.mode != "train":
+    raise NotImplementedError(
+        f"--mode={args.mode} runs in one process, not {world}: the "
+        f"multi-process evaluation service, generate and the sharded "
+        f"serving export are not ported yet (ROADMAP.md, queue 1)")
   if args.mode == "train":
     from xmcgan_image_generation_tpu_torch import train as train_lib
     train_lib.train(config, args.workdir, args.device)

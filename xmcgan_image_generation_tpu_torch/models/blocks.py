@@ -107,16 +107,17 @@ class GenBlock(nn.Module):
 
   def __init__(self, in_features: int, filters: int, cond_features: int, *,
                scale_fuse: bool, dtype, device=None,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               norm_group_size: int = -1):
     super().__init__()
     kw = dict(dtype=dtype, device=device, generator=generator)
     self.scale_fuse = scale_fuse
     self.ConditionalBatchNorm_0 = ConditionalBatchNorm(
-        in_features, cond_features, **kw)
+        in_features, cond_features, group_size=norm_group_size, **kw)
     self.Conv_0 = Conv(in_features, filters, (3, 3),
                        scale_op="up" if scale_fuse else "none", **kw)
     self.ConditionalBatchNorm_1 = ConditionalBatchNorm(
-        filters, cond_features, **kw)
+        filters, cond_features, group_size=norm_group_size, **kw)
     self.Conv_1 = Conv(filters, filters, (3, 3), **kw)
     self.Conv_2 = Conv(in_features, filters, (1, 1), **kw)
 
@@ -140,16 +141,19 @@ class GenSpatialBlockFused(nn.Module):
   def __init__(self, in_features: int, filters: int, ctx_features: int,
                global_features: int, factor: int, *, scale_fuse: bool,
                dtype, device=None,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               norm_group_size: int = -1):
     super().__init__()
     kw = dict(dtype=dtype, device=device, generator=generator)
     self.scale_fuse = scale_fuse
     self.FusedSpatialModulation_0 = FusedSpatialModulation(
-        in_features, ctx_features, global_features, factor, **kw)
+        in_features, ctx_features, global_features, factor,
+        group_size=norm_group_size, **kw)
     self.Conv_0 = Conv(in_features, filters, (3, 3),
                        scale_op="up" if scale_fuse else "none", **kw)
     self.FusedSpatialModulation_1 = FusedSpatialModulation(
-        filters, ctx_features, global_features, 2 * factor, **kw)
+        filters, ctx_features, global_features, 2 * factor,
+        group_size=norm_group_size, **kw)
     self.Conv_1 = Conv(filters, filters, (3, 3), **kw)
     self.Conv_2 = Conv(in_features, filters, (1, 1), **kw)
 

@@ -5,7 +5,9 @@ The public calls take and return NHWC images; the conv stacks run NCHW.
 Parameters are float32 and compute runs in the configured dtype.  The
 ported generator path is the default one: fused spatial modulation
 (``fused_spatial_cond``) without spectral norm in G.  BatchNorm statistics
-and contrastive pools are over the whole batch on one device.
+and contrastive pools are over the global batch (with a process group,
+every process's rows: `parallel`), or over contiguous groups of it with
+``batch_norm_group_size`` and ``contrastive_group_size`` > 0.
 
 ``config.remat`` recomputes a block's forward in the backward instead of
 keeping its activations (`torch.utils.checkpoint`, non-reentrant), for
@@ -76,10 +78,6 @@ def compute_dtype(config) -> torch.dtype:
 
 def _check_supported(config) -> None:
   """Raises on configuration branches the port does not have yet."""
-  if int(config.get("batch_norm_group_size", -1)) > 0:
-    raise NotImplementedError("grouped BatchNorm is not ported yet")
-  if int(config.get("contrastive_group_size", -1)) > 0:
-    raise NotImplementedError("grouped contrastive pools are not ported yet")
   if config.get("scale_fused_convs", False) and config.get(
       "upconv_method", "phase") != "dilated":
     raise NotImplementedError("only upconv_method='dilated' is ported")
@@ -209,6 +207,8 @@ class Generator(nn.Module):
     self.config = config
     self.dtype = compute_dtype(config)
     kw = dict(dtype=self.dtype, device=device, generator=generator)
+    norm_kw = dict(kw, norm_group_size=int(
+        config.get("batch_norm_group_size", -1)))
     gf = config.gf_dim
     z_dim = config.z_dim
     channels = _GEN_CHANNELS[config.image_size]
@@ -221,7 +221,7 @@ class Generator(nn.Module):
     # Block i's output side is 4 * 2 ** (i + 1), as in the JAX package.
     for i in range(2):
       self.add_module(f"GenBlock_{i}", _maybe_remat(config, blocks.GenBlock(
-          in_ch, gf * channels[i], cond, scale_fuse=fuse, **kw),
+          in_ch, gf * channels[i], cond, scale_fuse=fuse, **norm_kw),
           4 * 2 ** (i + 1)))
       in_ch = gf * channels[i]
     self.Conv_0 = Conv(in_ch, BERT_DIM, (1, 1), **kw)
@@ -230,13 +230,14 @@ class Generator(nn.Module):
     for i in range(2, len(channels)):
       block = _maybe_remat(config, blocks.GenSpatialBlockFused(
           in_ch, gf * channels[i], BERT_DIM, cond, factor, scale_fuse=fuse,
-          **kw), 4 * 2 ** (i + 1))
+          **norm_kw), 4 * 2 ** (i + 1))
       self.add_module(f"GenSpatialBlockFused_{i - 2}", block)
       self.spatial_blocks.append(block)
       in_ch = gf * channels[i]
       factor *= 2
     self.FusedSpatialModulation_0 = FusedSpatialModulation(
-        in_ch, BERT_DIM, cond, factor, **kw)
+        in_ch, BERT_DIM, cond, factor,
+        group_size=norm_kw["norm_group_size"], **kw)
     self.Conv_1 = Conv(in_ch, 3, (3, 3), **kw)
 
   def forward(self, cond: Dict[str, Tensor], z: Tensor) -> Tensor:
@@ -325,6 +326,8 @@ class Discriminator(nn.Module):
               critic_only: bool = False) -> Tuple[Tensor, Dict[str, Tensor]]:
     config = self.config
     use_pallas = bool(config.get("use_pallas", False))
+    # -1: the global batch's pool; > 0: contiguous groups of examples.
+    group = int(config.get("contrastive_group_size", -1))
     x = images.permute(0, 3, 1, 2).to(self.dtype)
     x = _run_block(self.DiscOptimizedBlock_0, x)
     x_cond = None
@@ -354,9 +357,9 @@ class Discriminator(nn.Module):
     if config.sentence_contrastive:
       if not critic_only:
         put("fake_sentence", contrastive_ops.nt_xent(
-            fake_pool, sent_cond, use_pallas=use_pallas))
+            fake_pool, sent_cond, use_pallas=use_pallas, group_size=group))
       put("real_sentence", contrastive_ops.nt_xent(
-          real_pool, sent_cond, use_pallas=use_pallas))
+          real_pool, sent_cond, use_pallas=use_pallas, group_size=group))
     if config.word_contrastive:
       region = region_conv(x_cond)
       region = region.permute(0, 2, 3, 1).reshape(
@@ -365,10 +368,12 @@ class Discriminator(nn.Module):
       word_feat, max_len = cond["embedding"], cond["max_len"]
       if not critic_only:
         put("fake_word", attn_ops.word_loss(
-            fake_region, word_feat, max_len, use_pallas=use_pallas))
+            fake_region, word_feat, max_len, use_pallas=use_pallas,
+            group_size=group))
       put("real_word", attn_ops.word_loss(
-          real_region, word_feat, max_len, use_pallas=use_pallas))
+          real_region, word_feat, max_len, use_pallas=use_pallas,
+          group_size=group))
     if config.image_contrastive and not critic_only:
       put("image_contrastive", contrastive_ops.nt_xent(
-          fake_pool, real_pool, use_pallas=use_pallas))
+          fake_pool, real_pool, use_pallas=use_pallas, group_size=group))
     return out, stats

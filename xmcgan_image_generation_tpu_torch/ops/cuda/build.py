@@ -8,13 +8,17 @@ PyTorch header, so a build takes seconds.  The libraries land in
 ``_build/`` beside the package, each named by a hash of its source (with
 the headers of ``csrc/`` and the flags), so an edited kernel is rebuilt
 and an unchanged one is not.  Nothing is built when this module is
-imported.
+imported.  Processes that build at once (the ranks of a ``torchrun``)
+take turns on a lock file in ``_build/``: the first builds, the others
+find the libraries.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import fcntl
 import functools
 import hashlib
 import os
@@ -93,15 +97,32 @@ def find_nvcc() -> str:
       "xmcgan_image_generation_tpu_torch cannot be built")
 
 
+@contextlib.contextmanager
+def _build_lock():
+  BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  with open(BUILD_DIR / ".lock", "w") as f:
+    fcntl.flock(f, fcntl.LOCK_EX)
+    try:
+      yield
+    finally:
+      fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build() -> BuildResult:
   """Compiles every ``csrc/*.cu`` whose library does not exist yet, one
   ``nvcc`` per source, all at once."""
   targets = {src: BUILD_DIR / f"lib{src.stem}_{source_hash(src)}.so"
              for src in _sources()}
+  if all(path.exists() for path in targets.values()):
+    return BuildResult(list(targets.values()), 0.0, "")
+  with _build_lock():
+    return _build(targets)
+
+
+def _build(targets) -> BuildResult:
   todo = [src for src, path in targets.items() if not path.exists()]
   if not todo:
     return BuildResult(list(targets.values()), 0.0, "")
-  BUILD_DIR.mkdir(parents=True, exist_ok=True)
   start = time.perf_counter()
   logs, failed = [], []
   with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:

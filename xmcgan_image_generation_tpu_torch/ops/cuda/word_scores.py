@@ -22,6 +22,17 @@ CPU tensors each runs its plain PyTorch version (`scores_plain`,
 image]`` op over raw features; on the card its backward gives the
 gradient of each input that asks for one.  The training step asks only
 for the regions': its word features are the batch's BERT embeddings.
+
+With a ``mesh``, `word_scores` is the dispatch of the JAX package's
+``make_sharded_word_scores`` (`make_sharded_word_scores` here): each
+process scores its own images against every process's captions (``[B/N,
+B]`` rows, kernel B at I = B/N, C = B), and the rows are gathered into
+the ``[caption, image]`` matrix.  Its backward gives this process's
+``d_rn`` from its columns of the cotangent (kernel C) and a partial
+``d_wn`` over its images (kernel D), which one sum over processes
+completes.  Without a mesh the same autograd Function runs on the whole
+batch with no collective; on CPU tensors with a mesh it runs the plain
+versions.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import torch.nn.functional as F
 
 from xmcgan_image_generation_tpu_torch.ops.contrastive import l2_normalize
 from xmcgan_image_generation_tpu_torch.ops.cuda import build
+from xmcgan_image_generation_tpu_torch.parallel import collectives
 
 NEG_INF = -1e9
 MAX_REGIONS = 256   # the kernels' limit on regions per image
@@ -253,51 +265,87 @@ def _unit_with_vjp(feat: torch.Tensor):
     return x, l2_normalize(x.float(), dim=-1)
 
 
+def _gather(x: torch.Tensor, mesh, tag: str) -> torch.Tensor:
+  """Every process's rows of ``x``; ``x`` itself without a mesh (not the
+  ambient one: the caller chose none)."""
+  return x if mesh is None else collectives.gather_rows(x, mesh, tag=tag)
+
+
 class _WordScores(torch.autograd.Function):
-  """Kernel forward and both gradients on the card."""
+  """Scores and both gradients of this process's images against every
+  process's captions (see the module's docstring); with no mesh, of the
+  whole batch against itself."""
 
   @staticmethod
-  def forward(ctx, region_feat, word_feat, mask, gamma1, gamma2):
+  def forward(ctx, region_feat, word_feat, mask, mesh, gamma1, gamma2):
     rn = l2_normalize(region_feat.float(), dim=-1).contiguous()
-    wn = l2_normalize(word_feat.float(), dim=-1).contiguous()
-    saved = (new_saved(rn, wn) if any(ctx.needs_input_grad[:2])
-             else None)
-    out = scores(rn, wn, mask, gamma1, gamma2, saved=saved)
-    ctx.save_for_backward(region_feat, word_feat, mask, saved)
-    ctx.gammas = (gamma1, gamma2)
+    wn = _gather(l2_normalize(word_feat.float(), dim=-1), mesh,
+                 "word_features").contiguous()
+    mask = _gather(mask, mesh, "word_mask").contiguous()
+    saved = (new_saved(rn, wn) if rn.device.type == "cuda"
+             and any(ctx.needs_input_grad[:2]) else None)
+    rows = scores(rn, wn, mask, gamma1, gamma2, saved=saved)    # [B/N, B]
+    out = _gather(rows, mesh, "word_scores")
+    ctx.save_for_backward(region_feat, word_feat, wn, mask, saved)
+    ctx.rank = 0 if mesh is None else mesh.rank
+    ctx.mesh, ctx.gammas = mesh, (gamma1, gamma2)
     return out.t().contiguous()
 
   @staticmethod
   def backward(ctx, g):
-    region_feat, word_feat, mask, saved = ctx.saved_tensors
+    region_feat, word_feat, wn, mask, saved = ctx.saved_tensors
     need_region, need_word = ctx.needs_input_grad[:2]
-    g = g.float().contiguous()
+    local = region_feat.shape[0]
+    start = ctx.rank * local
+    # Every process computed the same loss: g is whole on each, and this
+    # process's images are its columns.
+    g = g.float()[:, start:start + local].contiguous()
     x, rn = _unit_with_vjp(region_feat)
-    y, wn = _unit_with_vjp(word_feat)
-    rn_d, wn_d = rn.detach().contiguous(), wn.detach().contiguous()
+    rn_d = rn.detach().contiguous()
     d_region = d_word = None
     if need_region:
-      d_rn = drn(rn_d, wn_d, mask, g, saved, *ctx.gammas)
+      d_rn = drn(rn_d, wn, mask, g, saved, *ctx.gammas)
       (d_region,) = torch.autograd.grad(rn, x, d_rn)
     if need_word:
-      d_wn = dwn(rn_d, wn_d, mask, g, saved, *ctx.gammas)
-      (d_word,) = torch.autograd.grad(wn, y, d_wn)
-    return d_region, d_word, None, None, None
+      d_wn = dwn(rn_d, wn, mask, g, saved, *ctx.gammas)
+      if ctx.mesh is not None:
+        d_wn = collectives.all_reduce(d_wn, mesh=ctx.mesh, tag="word_grad")
+      y, wn_local = _unit_with_vjp(word_feat)
+      (d_word,) = torch.autograd.grad(wn_local, y,
+                                      d_wn[start:start + local])
+    return d_region, d_word, None, None, None, None
 
 
 def word_scores(region_feat: torch.Tensor, word_feat: torch.Tensor,
                 mask: torch.Tensor, gamma1: float = 5.0,
-                gamma2: float = 5.0) -> torch.Tensor:
+                gamma2: float = 5.0, mesh=None) -> torch.Tensor:
   """``[caption, image]`` match scores (before the gamma3 scale).
 
   ``region_feat`` ``[B, R, D]``, ``word_feat`` ``[B, L, D]``, ``mask``
-  ``[B, L]`` with 1.0 at padding words; normalization happens inside.  On
-  the CPU the plain version's autograd gives both gradients.
+  ``[B, L]`` with 1.0 at padding words; normalization happens inside.
+  With a ``mesh`` (a `parallel.mesh.ProcessMesh` with a group) each
+  argument holds this process's rows and the result is the global
+  matrix, the same on every process.  On the CPU without a mesh the
+  plain version's autograd gives both gradients.
   """
   mask = mask.float().contiguous()
-  if region_feat.device.type == "cpu":
+  if region_feat.device.type == "cpu" and mesh is None:
     rn = l2_normalize(region_feat.float(), dim=-1).contiguous()
     wn = l2_normalize(word_feat.float(), dim=-1).contiguous()
     return scores(rn, wn, mask, gamma1, gamma2).t()
-  return _WordScores.apply(region_feat, word_feat, mask, float(gamma1),
-                           float(gamma2))
+  return _WordScores.apply(region_feat, word_feat, mask, mesh,
+                           float(gamma1), float(gamma2))
+
+
+def make_sharded_word_scores(mesh, gamma1: float = 5.0,
+                             gamma2: float = 5.0):
+  """``(region_feat, word_feat, mask) -> [caption, image]`` scores over
+  ``mesh``'s processes (the JAX package's ``make_sharded_word_scores``):
+  `word_scores` with the mesh."""
+
+  def sharded(region_feat: torch.Tensor, word_feat: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    return word_scores(region_feat, word_feat, mask, gamma1, gamma2,
+                       mesh=mesh)
+
+  return sharded

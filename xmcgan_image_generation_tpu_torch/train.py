@@ -35,6 +35,18 @@ ends synchronized.  Sampling and checkpoints lie outside those windows;
 each save's seconds and bytes go to ``workdir/checkpoints.jsonl``.
 `setup` and `timed_step` are the loop's two halves, for tools that time
 the step.
+
+Data parallelism: under ``torchrun --nproc_per_node=N`` (or in processes
+that already joined a process group) each process drives one device
+(`parallel.mesh.MeshRules`), reads its shard of the records
+(`data.pipeline`), and the step gathers the global super-batch and takes
+the JAX package's update on N devices (`engine.step`).  The state is
+broadcast from process 0 after creation or restore.  Process 0 writes the
+metrics, hparams, profile, image grids, the checkpoint and
+``TRAIN_DONE``; every process writes its own loader state beside the
+checkpoint (`utils.checkpoint`).  A SIGTERM to any process stops every
+process at one agreed step (`utils.preemption`, with the process's
+rank).
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ from xmcgan_image_generation_tpu_torch.engine import registry
 from xmcgan_image_generation_tpu_torch.engine.sampling import generate_batch
 from xmcgan_image_generation_tpu_torch.engine.state import (
     TrainState,
+    broadcast_state,
     create_train_state,
     learning_rates,
 )
@@ -60,6 +73,9 @@ from xmcgan_image_generation_tpu_torch.engine.step import (
     split_batch,
     train_step,
 )
+from xmcgan_image_generation_tpu_torch.parallel import collectives
+from xmcgan_image_generation_tpu_torch.parallel import context
+from xmcgan_image_generation_tpu_torch.parallel.mesh import MeshRules
 from xmcgan_image_generation_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     checkpoints_dir,
@@ -126,12 +142,24 @@ def timed_step(run: Run, config, device: torch.device, sync: bool = True
 
 def train(config, workdir: str, device="cuda") -> TrainState:
   """Trains up to the step count of `compute_num_train_steps` on
-  ``device``, resuming from ``workdir``'s latest checkpoint, and returns
-  the state (at the preemption step if a SIGTERM stopped it)."""
-  device = torch.device(device)
-  if device.type == "cuda" and not torch.cuda.is_available():
-    raise RuntimeError("no CUDA device; pass device='cpu' to train on the "
-                       "CPU")
+  ``device`` (``cuda:LOCAL_RANK`` for ``"cuda"``), resuming from
+  ``workdir``'s latest checkpoint, and returns the state (at the
+  preemption step if a SIGTERM stopped it)."""
+  rules = MeshRules.create(config.get("mesh_data", -1),
+                           config.get("mesh_model", 1), device=device)
+  try:
+    return _train(config, workdir, rules.mesh)
+  finally:
+    rules.shutdown()
+
+
+def _train(config, workdir: str, mesh) -> TrainState:
+  device, is_main = mesh.device, mesh.is_main
+  log.info("process %d of %d on %s", mesh.rank, mesh.world, device)
+  if config.batch_size % mesh.world:
+    raise ValueError(
+        f"Global batch size {config.batch_size} must be divisible by the "
+        f"data mesh axis ({mesh.world} processes).")
   os.makedirs(workdir, exist_ok=True)
   run, num_train_examples = setup(config, device)
   state, _, batches = run
@@ -141,15 +169,16 @@ def train(config, workdir: str, device="cuda") -> TrainState:
                      f"{config.num_train_steps}")
   log.info("num_train_steps=%d (examples=%d)", num_train_steps,
            num_train_examples)
-  ckpt = CheckpointManager(checkpoints_dir(workdir))
+  ckpt = CheckpointManager(checkpoints_dir(workdir), mesh=mesh)
   task_manager = TaskManagerWithCsvResults(checkpoints_dir(workdir))
   if ckpt.latest_step() is None:
     # The JAX loop initializes its models from super-batch 0 (its
     # ``template_batch``), so its step k trains on super-batch k.
     next(batches)
   ckpt.restore_or_initialize(state, batches)
+  broadcast_state(state)
   initial_step = state.step + 1
-  writer = MetricWriter(workdir)
+  writer = MetricWriter(workdir, just_logging=not is_main)
   if initial_step == 1:
     writer.write_hparams(dict(config))
   hooks = [ReportProgress(
@@ -157,14 +186,15 @@ def train(config, workdir: str, device="cuda") -> TrainState:
       num_train_steps=num_train_steps, writer=writer,
       images_per_step=config.batch_size * config.d_step_per_g_step)]
   profile = None
-  if config.get("profile", False):
+  if is_main and config.get("profile", False):
     profile = Profile(workdir, profile_step=10, num_profile_steps=5,
                       device=device)
     hooks.append(profile)
   acc = MetricAccumulator()
   g_lr, d_lr = learning_rates(config)
   guard = PreemptionGuard(workdir, initial_step,
-                          margin=config.get("preemption_margin", 2))
+                          margin=config.get("preemption_margin", 2),
+                          process_index=mesh.rank)
   guard.install()
   preempted_at = None
   log.info("Starting training loop at step %d.", initial_step)
@@ -187,23 +217,29 @@ def train(config, workdir: str, device="cuda") -> TrainState:
         writer.write_scalars(step, scalars)
 
       if step % config.eval_every_steps == 0 or is_last:
-        vis_batch = split_batch(batch, config.d_step_per_g_step)[0]
-        sample = generate_batch(state, vis_batch, config)
-        writer.write_images(step, {
-            "generated_image": sample["generated_image"].cpu().numpy(),
-            "ema_generated_image":
-                sample["ema_generated_image"].cpu().numpy(),
-            "original_image": sample["image"].cpu().numpy(),
-        }, max_images=config.show_num)
+        # The global super-batch's first sub-batch, sampled by process 0
+        # alone (G in eval mode runs no collective).
+        vis_batch = split_batch(collectives.gather_batch(batch),
+                                config.d_step_per_g_step)[0]
+        if is_main:
+          with context.ambient_mesh(None):
+            sample = generate_batch(state, vis_batch, config)
+          writer.write_images(step, {
+              "generated_image": sample["generated_image"].cpu().numpy(),
+              "ema_generated_image":
+                  sample["ema_generated_image"].cpu().numpy(),
+              "original_image": sample["image"].cpu().numpy(),
+          }, max_images=config.show_num)
 
       preempt_now = guard.should_stop(step)
       if step % config.checkpoint_every_steps == 0 or is_last or preempt_now:
         save_seconds, size = ckpt.save(step, state, batches)
         log.info("checkpoint @%d saved in %.2f s, %d bytes", step,
                  save_seconds, size)
-        with open(os.path.join(workdir, "checkpoints.jsonl"), "a") as f:
-          f.write(json.dumps({"step": step, "seconds": save_seconds,
-                              "bytes": size}) + "\n")
+        if is_main:
+          with open(os.path.join(workdir, "checkpoints.jsonl"), "a") as f:
+            f.write(json.dumps({"step": step, "seconds": save_seconds,
+                                "bytes": size}) + "\n")
       if preempt_now:
         preempted_at = step
         break
@@ -218,6 +254,7 @@ def train(config, workdir: str, device="cuda") -> TrainState:
              "restart to resume.", preempted_at, num_train_steps)
     return state
   guard.cleanup()
-  task_manager.mark_training_done()
+  if is_main:
+    task_manager.mark_training_done()
   log.info("Finished training at step %d.", state.step)
   return state

@@ -5,7 +5,8 @@ Feature batches (tensors on any device, or numpy) are pulled to the host
 and accumulated in float64: over 30000 x 2048 pools the one-pass
 ``E[XX^T] - mu mu^T`` formula loses digits in float32.  The host product
 is one ``dim x dim`` GEMM per batch.  The JAX package's per-process
-shard walk and cross-process sum wait for multi-GPU.
+shard walk and cross-process sum wait for the multi-process evaluation
+service (``ROADMAP.md``).
 """
 
 from __future__ import annotations

@@ -4,7 +4,9 @@ package's ``utils/metric_writer.py``).
 `MetricWriter` appends one JSON object per call, ``{"step": ..., **scalars}``,
 to ``{workdir}/metrics.jsonl``, writes image grids to
 ``{workdir}/images/{name}_{step:08d}.png`` and, as the reference does, the
-same scalars and grids as TensorBoard events (`utils.tb_writer`).
+same scalars and grids as TensorBoard events (`utils.tb_writer`); with
+``just_logging`` (every process but the first of a run, as in the JAX
+loop) it only logs the scalars.
 `MetricAccumulator` keeps the running sums of a logging interval on the
 device and reads them to the host once, when the interval's mean is
 written.  `ReportProgress` writes ``steps_per_sec`` and
@@ -33,8 +35,11 @@ class MetricWriter:
   """Writes scalar dicts to ``metrics.jsonl`` and images to PNGs, and
   both to a TensorBoard event file."""
 
-  def __init__(self, workdir: str):
+  def __init__(self, workdir: str, just_logging: bool = False):
     self.workdir = workdir
+    self.just_logging = just_logging
+    if just_logging:
+      return
     fileio.makedirs(workdir)
     self._f = open(fileio.join(workdir, "metrics.jsonl"), "a")
     self._tb = EventFileWriter(workdir)
@@ -43,6 +48,8 @@ class MetricWriter:
     scalars = {k: float(v) for k, v in scalars.items()}
     log.info("step %d: %s", step,
              " ".join(f"{k}={v:.4f}" for k, v in scalars.items()))
+    if self.just_logging:
+      return
     self._f.write(json.dumps({"step": int(step), **scalars}) + "\n")
     self._f.flush()
     self._tb.write_scalars(step, scalars)
@@ -50,6 +57,8 @@ class MetricWriter:
 
   def write_images(self, step: int, images: Mapping[str, np.ndarray],
                    max_images: int = 64) -> None:
+    if self.just_logging:
+      return
     fileio.makedirs(fileio.join(self.workdir, "images"))
     for name, batch in images.items():
       path = fileio.join(self.workdir, "images",
@@ -61,12 +70,16 @@ class MetricWriter:
 
   def write_hparams(self, hparams: Mapping) -> None:
     log.info("hparams: %s", dict(hparams))
+    if self.just_logging:
+      return
     fileio.atomic_write(
         fileio.join(self.workdir, "hparams.json"),
         json.dumps({k: _jsonable(v) for k, v in dict(hparams).items()},
                    indent=2, default=str))
 
   def close(self) -> None:
+    if self.just_logging:
+      return
     self._f.close()
     self._tb.close()
 
