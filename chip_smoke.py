@@ -92,7 +92,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    NCCL group and takes one test-config step through the collectives
    against the same step without a group; the kernels are built in the
    parent first;
-9. prints the kernel records as one JSON line, the card line, and last
+9. every mode over processes: two processes on the one card, joined over
+   gloo, run (a) ``evaluate.evaluate_continuously`` on phase 4's
+   checkpoint (``TRAIN_DONE`` lands a heartbeat and a half after the
+   first row, so process 0 heartbeats while it polls), (b)
+   ``generate.generate`` and (c) ``utils.serving.export_from_workdir``;
+   the parent holds (a)'s merged statistics and IS, the same on both
+   processes, against one ``EvalMetric`` on the same global batches
+   (each process's shard concatenated process-major), (b)'s grids against
+   one process's of the same global batch, and (c)'s one artifact, served
+   from a torch-only process, against phase 7's; checks that process 1
+   appended no score and wrote no grid or artifact; prints each process's
+   scoring seconds, host-statistics ms a batch and control-plane counts
+   beside phase 6's one process.  None of kernels A-D is on these paths;
+10. prints the kernel records as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.  Any failed phase exits non-zero before
@@ -1265,7 +1278,13 @@ def evaluate_flagship(torch, card, workdir, config, dev):
   print(f"  peak device memory: {peak / 2**30:.3f} GiB "
         f"(torch.cuda.max_memory_allocated)", flush=True)
   print(f"  scores.csv row: {json.dumps(rows[0])}", flush=True)
+  print(f"  host statistics (device synchronized first, the copy to the "
+        f"host included): "
+        f"{metric.last_host_seconds / metric.last_host_batches * 1e3:.2f} "
+        f"ms a batch of {config.eval_batch_size} and weight set "
+        f"({metric.last_host_batches} batches)", flush=True)
   eval_breakdown(torch, config, dev, workdir, metric)
+  return metric
 
 
 def eval_breakdown(torch, config, dev, workdir, metric):
@@ -1329,16 +1348,24 @@ def eval_breakdown(torch, config, dev, workdir, metric):
 
 
 # The serving process: it imports torch and nothing of the repository (nor
-# JAX), loads each artifact, serves every batch of the inputs file and
-# times SERVE_WINDOWS windows of SERVE_STEPS calls with CUDA events.
+# JAX), loads each artifact (waiting for one still to be written), serves
+# every batch of the inputs file and times SERVE_WINDOWS windows of
+# SERVE_STEPS calls with CUDA events.
 _SERVE_SCRIPT = """
-import json, sys, time
+import json, os, sys, time
 BLOCKED = ("jax", "jaxlib", "flax", "xmcgan_image_generation_tpu",
            "xmcgan_image_generation_tpu_torch")
 for name in BLOCKED:
   sys.modules[name] = None
 import torch
 inputs_path, out_path, steps, windows, *artifacts = sys.argv[1:]
+if not all(os.path.exists(p[:-len(".pt2")] + ".json") for p in artifacts):
+  # An artifact still to be written: start the card, then wait for its
+  # sidecar, written after it.
+  torch.zeros(1, device="cuda")
+  while not all(os.path.exists(p[:-len(".pt2")] + ".json")
+                for p in artifacts):
+    time.sleep(0.1)
 inputs = torch.load(inputs_path)
 report, images = {}, {}
 for path in artifacts:
@@ -1934,6 +1961,409 @@ def ddp_phase(torch, card, records):
                                    for res in results]
 
 
+EVAL_WORLD = 2            # phase 9's processes on the one card
+EVAL_DEVICE = "cuda:0"    # the card both use
+EVAL_WORKERS = 2          # loader workers a process in phase 9
+HEARTBEAT_S = 0.5         # phase 9a's heartbeat interval
+# Phase 9a's tolerances, written into PERF.md before the run that first
+# held them: the two processes' merged statistics against one process's
+# on the same global batches, which differ by the float64 sums' order and
+# by the convolution algorithms cuDNN picks for 28 rows and for 56 (seen:
+# 2.5e-8, 1.6e-6 and 8.7e-8 of these scales).  The random InceptionV3's
+# features barely vary and IS is 1 + 1e-8, so IS is held through IS - 1,
+# and each tolerance lies far below what a pool that lost a process's
+# rows would move.
+STATS_MU_TOL = 1e-6       # of max |mu|, elementwise
+STATS_SIGMA_TOL = 1e-4    # of max |sigma|, elementwise
+STATS_IS_EXCESS_RTOL = 1e-5   # of IS - 1
+GRID_TOL = 1              # of 255, a pixel of a grid (phase 9b)
+
+
+def phase9_config():
+  """The flagship configuration as phases 6 and 9 score it."""
+  config = flagship_config()
+  config.update(eval_num=EVAL_NUM, eval_avg_num=EVAL_AVG_NUM,
+                grain_worker_count=min(EVAL_WORKERS,
+                                       config.grain_worker_count))
+  return config
+
+
+def _eval_child(rank, port, root):
+  """Phase 9's process ``rank`` of two on one card (gloo): the
+  evaluation service (9a), timed alone, then export (9c) and generate
+  (9b) on ``root``, each through its entry point; writes ``scored{r}``
+  after the service and ``rank{r}.pt`` at the end."""
+  import torch
+  import torch.distributed as dist
+
+  from xmcgan_image_generation_tpu_torch import evaluate
+  from xmcgan_image_generation_tpu_torch import generate as gen_lib
+  from xmcgan_image_generation_tpu_torch.parallel import collectives
+  from xmcgan_image_generation_tpu_torch.parallel.mesh import (
+      init_process_group,
+  )
+  from xmcgan_image_generation_tpu_torch.utils import image_utils
+  from xmcgan_image_generation_tpu_torch.utils import serving
+  from xmcgan_image_generation_tpu_torch.utils import task_manager
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  writes = {"scores": 0, "grids": 0, "artifacts": 0}
+
+  def counted(owner, name, key):
+    original = getattr(owner, name)
+
+    def call(*args, **kw):
+      writes[key] += 1
+      return original(*args, **kw)
+
+    setattr(owner, name, call)
+
+  counted(task_manager.TaskManagerWithCsvResults, "add_eval_result",
+          "scores")
+  counted(image_utils, "save_image", "grids")
+  counted(serving, "_write_artifacts", "artifacts")
+  # One group for the three modes; each joins it as it is, as under
+  # torchrun (NCCL refuses two ranks on one device).
+  init_process_group(EVAL_DEVICE, rank=rank, world_size=EVAL_WORLD,
+                     backend="gloo", init_method=f"tcp://127.0.0.1:{port}")
+  config = phase9_config()
+  out = {"rank": rank, "marks": {"started": time.time()}}
+  collectives.reset_counts()
+  start = time.perf_counter()
+  evaluate.HEARTBEAT_INTERVAL = HEARTBEAT_S
+  metric = evaluate.evaluate_continuously(config, root, EVAL_DEVICE,
+                                          timeout=120)
+  out["marks"]["scored"] = time.time()
+  out["service"] = dict(
+      seconds=time.perf_counter() - start, real_seconds=metric.real_seconds,
+      score_seconds=metric.last_seconds,
+      generate_seconds=metric.last_generate_seconds,
+      host_ms=metric.last_host_seconds / metric.last_host_batches * 1e3,
+      host_batches=metric.last_host_batches, images=metric.last_images,
+      counts=collectives.counts(),
+      statistics={k: tuple(v) for k, v in metric.last_statistics.items()},
+      real=(metric._real_mu, metric._real_sigma))
+  del metric
+  # The parent's references may start: the timed service is done.
+  with open(os.path.join(root, f"scored{rank}"), "w"):
+    pass
+  collectives.reset_counts()
+  out["artifacts"] = serving.export_from_workdir(config, root,
+                                                 device=EVAL_DEVICE)
+  out["export_counts"] = collectives.counts()
+  out["marks"]["exported"] = time.time()
+  collectives.reset_counts()
+  gen_lib.generate(config, root, EVAL_DEVICE)
+  out["generate_counts"] = collectives.counts()
+  out["marks"]["generated"] = time.time()
+  out["writes"] = writes
+  dist.destroy_process_group()
+  torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+
+
+def global_batches(config, world=EVAL_WORLD):
+  """The global eval batches of ``world`` processes without end: each
+  process's batch ``k`` of ``create_datasets(..., process_index=r,
+  process_count=world)``, concatenated process-major (numpy)."""
+  from xmcgan_image_generation_tpu_torch.data import pipeline
+
+  import numpy as np
+
+  streams = [iter(pipeline.create_datasets(
+      config, seed=config.seed, process_index=r, process_count=world)[1])
+      for r in range(world)]
+  try:
+    while True:
+      parts = [next(it) for it in streams]
+      yield {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+  finally:
+    for it in streams:
+      it.close()
+
+
+def eval_reference(torch, config, root, dev):
+  """Phase 9a's one-process reference: one `EvalMetric` on the global
+  batches, its real statistics and one generated pass's merged
+  statistics and IS (no FID)."""
+  from xmcgan_image_generation_tpu_torch.engine.state import (
+      create_train_state,
+  )
+  from xmcgan_image_generation_tpu_torch.utils import checkpoint
+  from xmcgan_image_generation_tpu_torch.utils.eval_metrics import EvalMetric
+
+  manager = checkpoint.CheckpointManager(checkpoint.checkpoints_dir(root))
+  state = manager.restore(manager.latest_step(),
+                          create_train_state(config, dev, seed=config.seed))
+  batches = global_batches(config)
+  metric = EvalMetric(batches, config, dev)
+  pools, scores = metric._generated_statistics(state, None)
+  batches.close()
+  stats = {k: pools[k].compute() + (scores[k].compute()[0],) for k in pools}
+  return (metric._real_mu, metric._real_sigma), stats, state
+
+
+def stats_gaps(got, want):
+  """``(max |d mu| / max |mu|, max |d sigma| / max |sigma|)``."""
+  import numpy as np
+
+  (mu, sigma), (w_mu, w_sigma) = got, want
+  return (float(np.abs(mu - w_mu).max() / np.abs(w_mu).max()),
+          float(np.abs(sigma - w_sigma).max() / np.abs(w_sigma).max()))
+
+
+def modes_phase(torch, card, workdir, phase6):
+  """Phase 9: the evaluation service (9a), generate (9b) and export (9c)
+  over two processes on the one card (gloo), each against one process:
+  on a workdir holding phase 4's checkpoint.  ``phase6``: phase 6's
+  `EvalMetric`, the one-process service on the same checkpoint."""
+  import torch.multiprocessing as mp
+
+  from xmcgan_image_generation_tpu_torch.utils import checkpoint
+
+  config = phase9_config()
+  dev = torch.device(EVAL_DEVICE)
+  step = checkpoint.list_steps(checkpoint.checkpoints_dir(workdir))[-1]
+  root = os.path.join(workdir, "world2")
+  ckpt_dir = checkpoint.checkpoints_dir(root)
+  os.makedirs(ckpt_dir)
+  src = checkpoint.CheckpointManager(
+      checkpoint.checkpoints_dir(workdir)).path(step)
+  os.symlink(src, os.path.join(ckpt_dir, os.path.basename(src)))
+  rows = config.eval_batch_size // EVAL_WORLD
+  print(f"phase 9a: evaluate_continuously over {EVAL_WORLD} processes on "
+        f"the one card (gloo): phase 4's checkpoint, {config.image_size}px "
+        f"G in {config.dtype}, eval_batch_size {config.eval_batch_size} "
+        f"({rows} rows a process), eval_num {config.eval_num}, "
+        f"eval_avg_num {config.eval_avg_num}, {config.grain_worker_count} "
+        f"loader workers and {(os.cpu_count() or 1) // EVAL_WORLD} BLAS "
+        f"threads a process; TRAIN_DONE lands after the first row, "
+        f"heartbeats every {HEARTBEAT_S} s meanwhile", flush=True)
+  # Each process takes its share of the host's cores for numpy's BLAS
+  # (the `sqrtm`s), as torchrun caps each process's threads.
+  saved = dict(os.environ)
+  threads = str(max(1, (os.cpu_count() or 1) // EVAL_WORLD))
+  os.environ.update(OMP_NUM_THREADS=threads, OPENBLAS_NUM_THREADS=threads)
+  try:
+    ctx = mp.start_processes(_eval_child, args=(_free_port(), root),
+                             nprocs=EVAL_WORLD, join=False,
+                             start_method="spawn")
+  finally:
+    os.environ.clear()
+    os.environ.update(saved)
+  servers = []
+  try:
+    (results, want, real, stats, reference_s, served,
+     timeline) = _phase9_run(torch, config, workdir, root, ctx, dev, step,
+                             servers)
+  finally:
+    for proc in ctx.processes:
+      if proc.is_alive():
+        proc.terminate()
+    for server in servers:
+      if server.poll() is None:
+        server.kill()
+  print(f"  phase 9 timeline, seconds from the spawn: {json.dumps(timeline)}",
+        flush=True)
+  _phase9_checks(torch, card, config, workdir, root, step, phase6, results,
+                 want, real, stats, reference_s, *served,
+                 servers[0].returncode)
+
+
+def _phase9_run(torch, config, workdir, root, ctx, dev, step, servers):
+  """Phase 9's runs: the service, timed alone; then the one-process
+  references of 9a and 9b while the processes export and generate; and
+  the torch-only serving process of 9c's artifact (appended to
+  ``servers``), started first, which serves the artifact once it is
+  written."""
+  from xmcgan_image_generation_tpu_torch.data.prefetch import (
+      numeric_tensors,
+  )
+  from xmcgan_image_generation_tpu_torch.engine.sampling import (
+      generate_batch,
+  )
+  from xmcgan_image_generation_tpu_torch.utils import checkpoint
+  from xmcgan_image_generation_tpu_torch.utils.task_manager import (
+      TaskManager,
+  )
+
+  ckpt_dir = checkpoint.checkpoints_dir(root)
+  marks = {"spawned": time.time()}
+  # 9c's torch-only serving process starts the card now and waits for the
+  # artifact.
+  servers.append(subprocess.Popen(
+      [sys.executable, "-c", _SERVE_SCRIPT,
+       os.path.join(workdir, "serving", "inputs.pt"),
+       os.path.join(root, "images.pt"), "1", "1",
+       os.path.join(root, "serving", f"generator_ema_step{step:08d}.pt2")],
+      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root))
+  scores_path = os.path.join(ckpt_dir, "scores.csv")
+  scored = [os.path.join(root, f"scored{r}") for r in range(EVAL_WORLD)]
+  scored_at = None
+  # Training "ends" a heartbeat and a half after the service has scored
+  # the checkpoint: until then process 0 polls, heartbeating.
+  while not all(os.path.exists(p) for p in scored):
+    if ctx.join(timeout=0.2):
+      fail("phase 9: a process ended before its service did")
+    if scored_at is None and os.path.exists(scores_path):
+      scored_at = time.perf_counter()
+    if scored_at is not None and (
+        time.perf_counter() - scored_at > 1.5 * HEARTBEAT_S) and not (
+            os.path.exists(os.path.join(ckpt_dir, "TRAIN_DONE"))):
+      TaskManager(ckpt_dir).mark_training_done()
+  marks["scored"] = time.time()
+  # The one-process references, while the processes export and generate.
+  real, stats, state = eval_reference(torch, config, root, dev)
+  marks["reference"] = time.time()
+  gen_batches = global_batches(config)
+  next(gen_batches)   # passed over, as generate does
+  want = generate_batch(state, numeric_tensors(next(gen_batches), dev),
+                        config)
+  gen_batches.close()
+  del state
+  while not ctx.join(timeout=0.2):
+    pass
+  marks["end"] = time.time()
+  served = servers[0].communicate(timeout=300)
+  marks["served"] = time.time()
+  results = [torch.load(os.path.join(root, f"rank{r}.pt"),
+                        weights_only=False) for r in range(EVAL_WORLD)]
+  for res in results:
+    marks.update({f"rank{res['rank']}_{k}": v
+                  for k, v in res["marks"].items()})
+  timeline = {k: round(v - marks["spawned"], 2) for k, v in sorted(
+      marks.items(), key=lambda item: item[1])}
+  return (results, want, real, stats, marks["reference"] - marks["scored"],
+          served, timeline)
+
+
+def _phase9_checks(torch, card, config, workdir, root, step, phase6,
+                   results, want, real, stats, reference_s, serve_out,
+                   serve_err, serve_rc):
+  """Phase 9's comparisons, each against one process."""
+  import csv
+
+  import numpy as np
+
+  from xmcgan_image_generation_tpu_torch.data import png
+  from xmcgan_image_generation_tpu_torch.utils import checkpoint
+  from xmcgan_image_generation_tpu_torch.utils import image_utils
+
+  rows = config.eval_batch_size // EVAL_WORLD
+  scores_path = os.path.join(checkpoint.checkpoints_dir(root), "scores.csv")
+  serving_dir = os.path.join(root, "serving")
+  base = f"generator_ema_step{step:08d}"
+  # 9a.
+  with open(scores_path) as f:
+    score_rows = list(csv.DictReader(f))
+  if len(score_rows) != 1:
+    fail(f"phase 9a: scores.csv has {len(score_rows)} rows, expected 1")
+  for key, value in score_rows[0].items():
+    if not math.isfinite(float(value)):
+      fail(f"phase 9a: scores.csv: {key} = {value}")
+  for res in results:
+    svc = res["service"]
+    print(f"  rank {res['rank']}: service {svc['seconds']:.2f} s in all; "
+          f"real statistics {svc['real_seconds']:.2f} s; the checkpoint "
+          f"scored in {svc['score_seconds']:.2f} s (generated pass "
+          f"{svc['generate_seconds']:.2f} s, {svc['images']} images of "
+          f"this process); host statistics {svc['host_ms']:.2f} ms a "
+          f"batch of {rows} and weight set ({svc['host_batches']} "
+          f"batches); control plane {json.dumps(svc['counts'])} ({card})",
+          flush=True)
+  world1_host = phase6.last_host_seconds / phase6.last_host_batches * 1e3
+  print(f"  world 1 (phase 6, the same checkpoint and sizes): the "
+        f"checkpoint scored in {phase6.last_seconds:.2f} s (generated "
+        f"pass {phase6.last_generate_seconds:.2f} s); host statistics "
+        f"{world1_host:.2f} ms a batch of {config.eval_batch_size} and "
+        f"weight set; one-process reference on the global batches "
+        f"(statistics, no FID) {reference_s:.2f} s while the processes "
+        f"exported and generated", flush=True)
+  print(f"  scores.csv row: {json.dumps(score_rows[0])}", flush=True)
+  r0, r1 = results
+  heartbeats = r0["service"]["counts"].get("broadcast/heartbeat",
+                                           {"calls": 0})["calls"]
+  if heartbeats <= 0:
+    fail("phase 9a: process 0 sent no heartbeat while it polled")
+  for key in ("real",) + tuple(stats):
+    got = [res["service"]["real"] if key == "real"
+           else res["service"]["statistics"][key][:2] for res in results]
+    ref = real if key == "real" else stats[key][:2]
+    if not all(np.array_equal(a, b) for a, b in zip(*got)):
+      fail(f"phase 9a: the processes' merged {key} statistics differ")
+    mu_gap, sigma_gap = stats_gaps(got[0], ref)
+    line = (f"  {key}: merged statistics against one process's: max |d mu| "
+            f"{mu_gap:.3e} of max |mu| (tolerance {STATS_MU_TOL:.0e}), max "
+            f"|d sigma| {sigma_gap:.3e} of max |sigma| (tolerance "
+            f"{STATS_SIGMA_TOL:.0e})")
+    ok = mu_gap <= STATS_MU_TOL and sigma_gap <= STATS_SIGMA_TOL
+    if key != "real":
+      score, w_score = r0["service"]["statistics"][key][2], stats[key][2]
+      is_gap = abs(score - w_score) / abs(w_score - 1)
+      line += (f"; IS {score!r} against {w_score!r}, {is_gap:.3e} of IS "
+               f"- 1 (tolerance {STATS_IS_EXCESS_RTOL:.0e})")
+      ok = ok and is_gap <= STATS_IS_EXCESS_RTOL
+    print(line, flush=True)
+    if not ok:
+      fail(f"phase 9a: the {key} statistics disagree with one process's")
+  # 9b.
+  samples = os.path.join(root, "samples")
+  names = sorted(os.listdir(samples))
+  grids = ("generated_image", "ema_generated_image", "image")
+  if names != sorted(f"step{step:08d}_batch0_{g}.png" for g in grids):
+    fail(f"phase 9b: samples holds {names}")
+  worst = 0
+  for g in grids:
+    path = os.path.join(samples, f"step{step:08d}_batch0_{g}.png")
+    ref_path = os.path.join(workdir, f"world1_{g}.png")
+    image_utils.save_image(want[g].cpu().numpy(), ref_path, config.show_num)
+    with open(path, "rb") as f:
+      got_px = png.decode(f.read()).astype(np.int32)
+    with open(ref_path, "rb") as f:
+      ref_px = png.decode(f.read()).astype(np.int32)
+    diff = int(np.abs(got_px - ref_px).max())
+    worst = max(worst, diff)
+    print(f"  phase 9b: {g} grid {got_px.shape} of the gathered global "
+          f"batch against one process's: max |diff| {diff}/255, "
+          f"{float((got_px == ref_px).mean()):.6f} of values equal "
+          f"(tolerance {GRID_TOL}/255)", flush=True)
+  if worst > GRID_TOL:
+    fail("phase 9b: process 0's grids differ from one process's")
+  # 9c.
+  names = sorted(os.listdir(serving_dir))
+  if names != [base + ".json", base + ".pt2"]:
+    fail(f"phase 9c: serving holds {names}, expected one artifact")
+  if r0["artifacts"] != r1["artifacts"] or r0["artifacts"] != [
+      os.path.join(serving_dir, base + ".pt2")]:
+    fail(f"phase 9c: the processes returned {r0['artifacts']} and "
+         f"{r1['artifacts']}")
+  writes = [res["writes"] for res in results]
+  print(f"  phase 9b-9c: writes by process (scores.csv rows, grids, "
+        f"artifact sets): {json.dumps(writes)}; control plane in "
+        f"generate {json.dumps(r0['generate_counts'])}, in export "
+        f"{json.dumps(r0['export_counts'])}", flush=True)
+  if writes != [{"scores": 1, "grids": 3, "artifacts": 1},
+                {"scores": 0, "grids": 0, "artifacts": 0}]:
+    fail("phase 9: process 1 wrote, or process 0 did not write once")
+  if serve_rc != 0:
+    fail(f"phase 9c: the serving process: {serve_err[-3000:]}")
+  report = json.loads(serve_out.strip().splitlines()[-1])
+  if report["loaded"]:
+    fail(f"phase 9c: the serving process imported {report['loaded']}")
+  served = torch.load(os.path.join(root, "images.pt"))
+  phase7_served = torch.load(os.path.join(workdir, "serving", "images.pt"))
+  phase7_bf16 = [p for p, _ in phase7_served if "_int8_" not in p][0]
+  for b in SERVE_BATCHES:
+    got = served[(os.path.join(serving_dir, base + ".pt2"), b)]
+    ref = phase7_served[(phase7_bf16, b)]
+    err = float((got - ref).abs().max())
+    print(f"  phase 9c: the artifact of process 0 of two, served from a "
+          f"torch-only process at batch {b}, against phase 7's: max "
+          f"|diff| {err:.3e} (tolerance {SERVE_ATOL})", flush=True)
+    if not err <= SERVE_ATOL:
+      fail(f"phase 9c: batch {b} serves other images than phase 7's")
+
+
 def main() -> None:
   try:
     import torch
@@ -2012,8 +2442,9 @@ def main() -> None:
 
   def timed(label, fn, *args):
     t0 = time.perf_counter()
-    fn(*args)
+    out = fn(*args)
     print(f"  ({label}: {time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
 
   timed("phase 3", check_kernels, torch, records)
   timed("phase 3b", check_small_step, torch)
@@ -2029,15 +2460,17 @@ def main() -> None:
     timed("phase 4d", check_remat, torch, card)
     timed("phase 4b", real_data_phase, torch, card, dev)
     timed("phase 5", check_resume, torch, dev)
-    timed("phase 6", evaluate_flagship, torch, card, workdir, config, dev)
+    phase6 = timed("phase 6", evaluate_flagship, torch, card, workdir,
+                   config, dev)
     timed("phase 7", serve_flagship, torch, card, workdir, config, dev)
-  print("phase 8a: kernels B, C and D at the sharded dispatch's shapes "
-        "(images x captions a process)", flush=True)
-  timed("phase 8a", check_kernels_sharded, torch, records)
-  print(f"phase 8b: data parallelism, {DDP_WORLD} processes on one card "
-        f"over gloo, one flagship outer step in float32", flush=True)
-  timed("phase 8b", ddp_phase, torch, card, records)
-  timed("phase 8c", check_nccl_world1, torch)
+    print("phase 8a: kernels B, C and D at the sharded dispatch's shapes "
+          "(images x captions a process)", flush=True)
+    timed("phase 8a", check_kernels_sharded, torch, records)
+    print(f"phase 8b: data parallelism, {DDP_WORLD} processes on one card "
+          f"over gloo, one flagship outer step in float32", flush=True)
+    timed("phase 8b", ddp_phase, torch, card, records)
+    timed("phase 8c", check_nccl_world1, torch)
+    timed("phase 9", modes_phase, torch, card, workdir, phase6)
 
   print(json.dumps({"kernels": list(records.values())}))
   print(card)

@@ -2,10 +2,12 @@
 
 `start` spawns ``world`` processes that import torch, numpy and the port
 and nothing of JAX, joins them in a gloo group on localhost (one process
-runs without a group), makes the group the ambient mesh
+runs without a group; or, as ``torchrun`` would, each gets the
+environment and joins by itself), makes the group the ambient mesh
 (`parallel.context`), runs one function of this module in each and saves
 what it returns (``rank{r}.pt`` under the output directory), which
-`results` reads back.  Every process builds its
+`results` reads back.  `run` starts one process of a group with a plain
+``python`` command line, for the tests that watch a process die.  Every process builds its
 inputs from the numpy seeds of the functions below, which the test
 modules call too for the one-process and JAX sides.
 """
@@ -25,14 +27,18 @@ def free_port() -> int:
     return sock.getsockname()[1]
 
 
-def _entry(rank, world, port, outdir, name, args):
+def _entry(rank, world, port, outdir, name, torchrun, args):
   torch.set_num_threads(1)
   from xmcgan_image_generation_tpu_torch.parallel import context
   from xmcgan_image_generation_tpu_torch.parallel.mesh import (
       init_process_group,
   )
 
-  if world == 1:
+  if world == 1 or torchrun:
+    if torchrun:
+      os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                        WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                        MASTER_PORT=str(port))
     out = globals()[name](None, *args)
     torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
     return
@@ -46,12 +52,27 @@ def _entry(rank, world, port, outdir, name, args):
     dist.destroy_process_group()
 
 
-def start(world: int, name: str, outdir: str, *args):
+def start(world: int, name: str, outdir: str, *args, torchrun=False,
+          blas_threads=None):
   """Spawns the processes running ``name(mesh, *args)``; returns their
-  context (``join()`` until it returns True)."""
-  return mp.start_processes(_entry, args=(world, free_port(), outdir, name,
-                                          args),
-                            nprocs=world, join=False, start_method="spawn")
+  context (``join()`` until it returns True).  With ``torchrun`` no group
+  is started: each process gets ``torchrun``'s environment (``RANK``,
+  ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) and
+  ``mesh`` is None.  ``blas_threads`` caps numpy's BLAS threads in each
+  (processes that each take ``sqrtm``s of 2048 x 2048 matrices would
+  otherwise oversubscribe the cores)."""
+  saved = dict(os.environ)
+  if blas_threads:
+    os.environ.update(OPENBLAS_NUM_THREADS=str(blas_threads),
+                      OMP_NUM_THREADS=str(blas_threads))
+  try:
+    return mp.start_processes(_entry, args=(world, free_port(), outdir,
+                                            name, torchrun, args),
+                              nprocs=world, join=False,
+                              start_method="spawn")
+  finally:
+    os.environ.clear()
+    os.environ.update(saved)
 
 
 def results(context, world: int, outdir: str):
@@ -328,3 +349,292 @@ def step_cases(mesh, cases):
                           {k: rows(v, mesh) for k, v in batch.items()},
                           joint_alone)
           for label, overrides, path, batch, joint_alone in cases}
+
+
+# ---------------------------------------------------------------------------
+# The evaluation service, generate and export.
+# ---------------------------------------------------------------------------
+
+EVAL_WORLD = 2
+# The test config, in float32, with 2 rows a process of a global eval batch
+# of 4; eval_num 6 trims the second batch of each pass to process 0's rows.
+EVAL_OVERRIDES = dict(dtype="float32", eval_batch_size=4, eval_num=6)
+
+
+def eval_config(**overrides):
+  from xmcgan_image_generation_tpu_torch.configs import coco_xmc
+
+  config = coco_xmc.get_test_config()
+  config.update(**EVAL_OVERRIDES)
+  config.update(**overrides)
+  return config
+
+
+def global_eval_batches(config, count: int, world: int = EVAL_WORLD):
+  """The first ``count`` global eval batches of a run of ``world``
+  processes: each process's batch ``k`` of ``create_datasets(...,
+  process_index=r, process_count=world)``, concatenated process-major."""
+  from xmcgan_image_generation_tpu_torch.data import pipeline
+
+  streams = [iter(pipeline.create_datasets(
+      config, seed=config.seed, process_index=r, process_count=world)[1])
+      for r in range(world)]
+  out = []
+  for _ in range(count):
+    parts = [next(it) for it in streams]
+    out.append({k: np.concatenate([p[k] for p in parts]) for k in parts[0]})
+  return out
+
+
+class _Calls:
+  """Counts the calls of a function of a module or class in this
+  process, still calling it."""
+
+  def __init__(self, owner, name):
+    self.count = 0
+    original = getattr(owner, name)
+
+    def counted(*args, **kw):
+      self.count += 1
+      return original(*args, **kw)
+
+    setattr(owner, name, counted)
+
+
+def inception_npz(path):
+  """Writes the port's seeded InceptionV3 in the JAX ``.npz`` layout, each
+  BatchNorm's statistics set to those of its input over a seeded batch of
+  noise images, as a trained tower's fit its data, and the biases moved
+  off zero.  With the init statistics the random tower maps every image
+  to nearly the same pool features (their spread ~5e-6 of their mean),
+  so near the float32 noise between the two packages that their
+  covariances differ by 2 % of the largest, and IS is 1 + 3e-12."""
+  from xmcgan_image_generation_tpu_torch.models.inception_v3 import (
+      InceptionV3,
+  )
+  from xmcgan_image_generation_tpu_torch.ops.normalization import BatchNorm
+  from xmcgan_image_generation_tpu_torch.utils import bridge
+
+  model = InceptionV3().eval()
+  rng = np.random.default_rng(1)
+  for name, param in model.named_parameters():
+    if name.endswith("bias"):
+      with torch.no_grad():
+        param.copy_(torch.from_numpy(
+            0.1 * rng.standard_normal(param.shape)).float())
+
+  def fit(module, args):
+    x = args[0].float()
+    module.mean.copy_(x.mean(dim=(0, 2, 3)))
+    module.var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+
+  hooks = [m.register_forward_pre_hook(fit) for m in model.modules()
+           if isinstance(m, BatchNorm)]
+  images = rng.uniform(-1.0, 1.0, (4, 299, 299, 3)).astype(np.float32)
+  with torch.no_grad():
+    model(torch.from_numpy(images))
+  for hook in hooks:
+    hook.remove()
+  np.savez(path, **bridge.flat_from_state_dict(model.state_dict()))
+
+
+# FID and IS statistics over shards: 5 global batches of 4 rows; 18 rows
+# taken, so the last batch keeps process 0's 2 rows and none of process 1.
+FID_BATCHES, FID_ROWS, FID_TAKE, FID_DIM, FID_CLASSES = 5, 4, 18, 16, 10
+
+
+def fid_inputs():
+  rng = np.random.default_rng(12)
+  n = FID_BATCHES * FID_ROWS
+  logits = rng.standard_normal((n, FID_CLASSES))
+  return dict(
+      a=rng.standard_normal((n, FID_DIM)).astype(np.float32),
+      b=(1.5 * rng.standard_normal((n, FID_DIM)) + 0.3).astype(np.float32),
+      probs=(np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+             ).astype(np.float32))
+
+
+def fid_case(mesh, num_splits_list=(1, 3)):
+  """This process's rows of every global batch through the port's
+  streaming statistics: ``{"pools": [(mu, sigma)] of a and b, "fid",
+  "scores": {num_splits: (mean, std)}, "counts"}``."""
+  from xmcgan_image_generation_tpu_torch.parallel import collectives
+  from xmcgan_image_generation_tpu_torch.utils import fid
+
+  collectives.reset_counts()
+  inp = fid_inputs()
+  batches = [{k: rows(v[i * FID_ROWS:(i + 1) * FID_ROWS], mesh)
+              for k, v in inp.items()} for i in range(FID_BATCHES)]
+  takes = [min(FID_ROWS, FID_TAKE - i * FID_ROWS) for i in range(
+      FID_BATCHES)]
+  pools = []
+  for key in ("a", "b"):
+    stats = fid.StreamingGaussianStats(FID_DIM)
+    for batch, take in zip(batches, takes):
+      stats.update(torch.from_numpy(batch[key]), take)
+    pools.append(stats.compute())
+  scores = {}
+  for splits in num_splits_list:
+    score = fid.StreamingInceptionScore(FID_CLASSES, splits, FID_TAKE)
+    for batch, take in zip(batches, takes):
+      score.update(torch.from_numpy(batch["probs"]), take)
+    scores[splits] = score.compute()
+  return dict(pools=pools, fid=fid.frechet_distance(*pools[0], *pools[1]),
+              scores=scores, counts=collectives.counts())
+
+
+def service_case(mesh, workdir, overrides):
+  """`evaluate.evaluate_continuously` on ``workdir`` in this process of
+  the group: its merged statistics, the rows it appended to
+  ``scores.csv``, the collectives' counts and its timings."""
+  from xmcgan_image_generation_tpu_torch import evaluate
+  from xmcgan_image_generation_tpu_torch.parallel import collectives
+  from xmcgan_image_generation_tpu_torch.utils import task_manager
+
+  appended = _Calls(task_manager.TaskManagerWithCsvResults,
+                    "add_eval_result")
+  collectives.reset_counts()
+  metric = evaluate.evaluate_continuously(eval_config(**overrides), workdir,
+                                          "cpu", timeout=60)
+  return dict(statistics=metric.last_statistics,
+              real=(metric._real_mu, metric._real_sigma),
+              appended=appended.count, counts=collectives.counts(),
+              images=metric.last_images,
+              host_batches=metric.last_host_batches,
+              seconds=dict(real=metric.real_seconds,
+                           generate=metric.last_generate_seconds,
+                           score=metric.last_seconds))
+
+
+def eval_metric_case(mesh, workdir, overrides, batches=None):
+  """One `EvalMetric` scoring the workdir's latest checkpoint, over the
+  global ``batches`` (numpy) or, without them, this process's eval
+  stream: with ``batches`` ``{"row": the 8 values, "statistics", "real"}``;
+  without, one generated pass's merged statistics and no FID
+  (``{"statistics", "real"}``)."""
+  from xmcgan_image_generation_tpu_torch.engine.state import (
+      create_train_state,
+  )
+  from xmcgan_image_generation_tpu_torch.evaluate import eval_stream
+  from xmcgan_image_generation_tpu_torch.utils import checkpoint
+  from xmcgan_image_generation_tpu_torch.utils.eval_metrics import EvalMetric
+
+  config = eval_config(**overrides)
+  manager = checkpoint.CheckpointManager(checkpoint.checkpoints_dir(workdir))
+  state = manager.restore(manager.latest_step(),
+                          create_train_state(config, "cpu", seed=config.seed))
+  stream = iter(batches) if batches is not None else eval_stream(config,
+                                                                 "cpu")
+  metric = EvalMetric(stream, config, "cpu")
+  out = dict(real=(metric._real_mu, metric._real_sigma))
+  if batches is not None:
+    out["row"] = metric.calculate_inception_fid(state)
+    out["statistics"] = metric.last_statistics
+    return out
+  pools, scores = metric._generated_statistics(state, None)
+  stream.close()
+  out["statistics"] = {key: pools[key].compute() + (scores[key].compute()[0],)
+                       for key in pools}
+  return out
+
+
+MODES = ("test", "generate", "export")
+
+
+def modes_case(mesh, workdir, ports, flags):
+  """``main.main`` in each of `MODES` under ``torchrun``'s environment
+  (``MASTER_PORT`` from ``ports``, one group a mode): what each returned
+  on this process and what this process wrote."""
+  from xmcgan_image_generation_tpu_torch import main
+  from xmcgan_image_generation_tpu_torch.parallel import collectives
+  from xmcgan_image_generation_tpu_torch.utils import image_utils
+  from xmcgan_image_generation_tpu_torch.utils import serving
+  from xmcgan_image_generation_tpu_torch.utils import task_manager
+
+  writes = {"grids": _Calls(image_utils, "save_image"),
+            "artifacts": _Calls(serving, "_write_artifacts"),
+            "scores": _Calls(task_manager.TaskManagerWithCsvResults,
+                             "add_eval_result")}
+  out = {}
+  for mode, port in zip(MODES, ports):
+    os.environ["MASTER_PORT"] = str(port)
+    collectives.reset_counts()
+    try:
+      main.main(["--workdir", workdir, "--config=test", "--device=cpu",
+                 f"--mode={mode}", *flags])
+      out[mode] = dict(error=None, counts=collectives.counts())
+    except Exception as e:  # noqa: BLE001 - reported to the test
+      out[mode] = dict(error=repr(e))
+  out["writes"] = {k: v.count for k, v in writes.items()}
+  return out
+
+
+def sync_case(mesh, ckpt_dir, mode, interval, deadline):
+  """`evaluate._synchronized_steps` over a checkpoint directory that is
+  empty at the start (the JAX package's ``tests/test_multihost.py``):
+  ``protocol``: process 0 writes a checkpoint ~2 s in, then
+  ``TRAIN_DONE``; ``dead``: process 0 exits with code 17 ~1 s in;
+  ``stalled``: process 0 sleeps past the workers' deadline before it
+  joins.  Returns the steps and the longest wait of a broadcast on this
+  process; prints ``steps=[...]`` (the processes of `run` print)."""
+  import threading
+  import time
+
+  from xmcgan_image_generation_tpu_torch import evaluate
+  from xmcgan_image_generation_tpu_torch.parallel import collectives
+  from xmcgan_image_generation_tpu_torch.utils.task_manager import (
+      TaskManager,
+  )
+
+  manager = TaskManager(ckpt_dir)
+  rank = mesh.rank
+  waits = []
+  broadcast = collectives.broadcast_int
+
+  def timed(*args, **kw):
+    t0 = time.perf_counter()
+    try:
+      return broadcast(*args, **kw)
+    finally:
+      waits.append(time.perf_counter() - t0)
+
+  collectives.broadcast_int = timed
+  if rank == 0 and mode == "protocol":
+    def land():
+      time.sleep(2.0)
+      open(os.path.join(ckpt_dir, "checkpoint_5.pt"), "w").close()
+      manager.mark_training_done()
+    threading.Thread(target=land, daemon=True).start()
+  if rank == 0 and mode == "dead":
+    def die():
+      time.sleep(1.0)
+      os._exit(17)
+    threading.Thread(target=die, daemon=True).start()
+  if rank == 0 and mode == "stalled":
+    time.sleep(3 * deadline)
+  collectives.reset_counts()
+  steps = list(evaluate._synchronized_steps(
+      manager, timeout=60, heartbeat_interval=interval,
+      worker_deadline=deadline))
+  print(f"[rank {rank}] steps={steps}", flush=True)
+  return dict(steps=steps, max_wait=max(waits), waits=len(waits),
+              counts=collectives.counts())
+
+
+def run(rank: int, world: int, port: int, outdir: str, name: str, *args):
+  """The command line of one process of a group, for `subprocess`:
+  ``python _torch_dist.py RANK WORLD PORT OUTDIR NAME ARG...``; the
+  arguments are read as Python literals."""
+  import sys
+
+  return [sys.executable, os.path.abspath(__file__), str(rank), str(world),
+          str(port), outdir, name, *map(repr, args)]
+
+
+if __name__ == "__main__":
+  import ast
+  import sys
+
+  rank_, world_, port_, outdir_, name_ = sys.argv[1:6]
+  _entry(int(rank_), int(world_), int(port_), outdir_, name_, False,
+         tuple(ast.literal_eval(a) for a in sys.argv[6:]))

@@ -25,10 +25,15 @@ line does; the value is read as a Python literal
 (``--config.lr_schedule=cosine``, ``--config.grain_worker_count=4``).
 
 ``torchrun --nproc_per_node=N -m xmcgan_image_generation_tpu_torch.main
---mode=train ...`` trains one model over N processes, one device each
-(``cuda:LOCAL_RANK``, NCCL; with ``--device=cpu``, gloo), as the JAX
-package trains on an N-device ``data`` mesh (`train`).  The other modes
-run in one process: under ``WORLD_SIZE > 1`` they raise.
+--mode=...`` runs any mode over N processes, one device each
+(``--device=cuda`` is ``cuda:LOCAL_RANK``, NCCL; with ``--device=cpu``,
+gloo), as the JAX package runs each on an N-device ``data`` mesh:
+``train`` trains one model (`train`); ``test`` is one evaluation service
+whose processes score their rows of every eval batch and merge the
+statistics once, process 0 choosing the checkpoints and writing
+``scores.csv`` (`evaluate`); ``generate`` generates each process's rows
+and process 0 writes the grids (`generate`); ``export`` writes the
+artifacts once, from process 0 (`utils.serving.export_from_workdir`).
 """
 
 from __future__ import annotations
@@ -98,12 +103,6 @@ def main(argv=None) -> None:
   for key in ("num_train_steps", "data_source", "data_dir", "coco_version"):
     if getattr(args, key) is not None:
       config[key] = getattr(args, key)
-  world = int(os.environ.get("WORLD_SIZE", "1"))
-  if world > 1 and args.mode != "train":
-    raise NotImplementedError(
-        f"--mode={args.mode} runs in one process, not {world}: the "
-        f"multi-process evaluation service, generate and the sharded "
-        f"serving export are not ported yet (ROADMAP.md, queue 1)")
   if args.mode == "train":
     from xmcgan_image_generation_tpu_torch import train as train_lib
     train_lib.train(config, args.workdir, args.device)

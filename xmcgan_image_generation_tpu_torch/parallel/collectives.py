@@ -13,6 +13,11 @@ used on this process's rows alone (BatchNorm's sums) gets the partial
 cotangent of those rows, which `all_reduce_with_grad`'s backward sums
 again.
 
+The control plane (`broadcast_int`, `host_sum`, `host_barrier`) runs on
+the mesh's gloo group (``ProcessMesh.control``) on host values: the
+evaluation service's checkpoint steps and heartbeats, and its float64
+statistics, merged once.
+
 Only ``all_reduce``, ``all_gather`` and ``broadcast`` are used (gloo has
 no ``reduce_scatter``).  NCCL takes CUDA tensors only: a CPU tensor goes
 through the process's device and comes back.  Every call adds to a count
@@ -25,8 +30,10 @@ identity and counts nothing.
 
 from __future__ import annotations
 
+import datetime
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -233,3 +240,66 @@ def barrier(mesh=None) -> None:
     return
   device = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
   _reduce(torch.zeros(1, device=device), mesh, "sum", "barrier")
+
+
+def broadcast_int(value: int, src: int = 0, deadline: Optional[float] = None,
+                  tag: str = "control") -> int:
+  """Process ``src``'s ``value`` on every process, over the control group
+  (the JAX package's ``evaluate._broadcast_step``).  ``deadline`` (seconds)
+  bounds the wait: when it expires, or the group fails (a peer died), it
+  raises a ``RuntimeError`` saying that process ``src`` is gone."""
+  mesh = context.active_mesh()
+  if mesh is None:
+    return int(value)
+  t = torch.tensor([int(value)], dtype=torch.int64)
+  work = dist.broadcast(t, src=src, group=mesh.control, async_op=True)
+  _record("broadcast", tag, _nbytes(t))
+  if deadline is None:
+    work.wait()
+    return int(t)
+  try:
+    work.wait(timeout=datetime.timedelta(seconds=deadline))
+  except RuntimeError as e:
+    raise RuntimeError(
+        f"process {mesh.rank}: no broadcast from process {src} within "
+        f"{deadline:.1f} s ({e}); process {src} is gone, failing the "
+        f"job") from e
+  return int(t)
+
+
+def host_sum(*arrays) -> Tuple[np.ndarray, ...]:
+  """The sum over processes of each host array (float64 or int64), in
+  rank order, the same bits on every process: every process's arrays are
+  gathered over the control group and added as the JAX package's
+  ``process_allgather`` then ``np.sum(axis=0)`` adds them.  One gather a
+  dtype.  Without a group, the arrays as they are."""
+  mesh = context.active_mesh()
+  arrays = tuple(np.asarray(a) for a in arrays)
+  if mesh is None:
+    return arrays
+  out: List[Optional[np.ndarray]] = [None] * len(arrays)
+  by_dtype: Dict[np.dtype, List[int]] = {}
+  for i, a in enumerate(arrays):
+    by_dtype.setdefault(a.dtype, []).append(i)
+  for idx in by_dtype.values():
+    flat = torch.from_numpy(np.concatenate(
+        [arrays[i].reshape(-1) for i in idx]))
+    parts = [torch.empty_like(flat) for _ in range(mesh.world)]
+    dist.all_gather(parts, flat, group=mesh.control)
+    _record("all_gather", "host_sum", _nbytes(flat))
+    total = np.sum(np.stack([p.numpy() for p in parts]), axis=0)
+    offset = 0
+    for i in idx:
+      n = arrays[i].size
+      out[i] = total[offset:offset + n].reshape(arrays[i].shape)
+      offset += n
+  return tuple(out)
+
+
+def host_barrier() -> None:
+  """Returns once every process has called it, over the control group."""
+  mesh = context.active_mesh()
+  if mesh is None:
+    return
+  dist.barrier(group=mesh.control)
+  _record("barrier", "control", 0)

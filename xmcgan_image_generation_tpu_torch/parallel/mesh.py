@@ -11,6 +11,15 @@ process takes its rank, the world size and its local rank from
 with no group and no collectives, as before.  A group that fails to
 start raises; nothing falls back to one process.
 
+Beside the main group every process joins a gloo group, the control
+plane on the host (``ProcessMesh.control``; `collectives.broadcast_int`,
+`collectives.host_sum`, `collectives.host_barrier`), even when the main
+group is NCCL: a gloo wait can be bounded (a dead peer fails it at once
+or at its deadline, where it hangs an NCCL communicator until
+``TIMEOUT``), and what it carries (checkpoint steps, float64 statistics)
+lives on the host.  Every process creates it right after the main group,
+so all create it in the same order.
+
 The configuration's ``mesh_data`` is the ``data`` axis (-1: the world
 size; any other value must equal it) and ``mesh_model`` must be 1: the
 port has no model axis.  Parameters and optimizer state are replicated;
@@ -44,6 +53,8 @@ class ProcessMesh:
     backend: ``"nccl"`` or ``"gloo"`` (None without a group).
     owns_group: the group was started here and `MeshRules.shutdown` ends
       it.
+    control: the gloo group of the control plane (None without a group);
+      `MeshRules.shutdown` ends it.
   """
 
   rank: int
@@ -53,6 +64,7 @@ class ProcessMesh:
   group: Any = None
   backend: Optional[str] = None
   owns_group: bool = False
+  control: Any = None
 
   @property
   def is_main(self) -> bool:
@@ -76,7 +88,8 @@ def init_process_group(device="cuda", *, rank: Optional[int] = None,
                        local_rank: Optional[int] = None,
                        init_method: Optional[str] = None,
                        backend: Optional[str] = None) -> ProcessMesh:
-  """This process's `ProcessMesh`.
+  """This process's `ProcessMesh`, with a new gloo control group when it
+  has a process group.
 
   A default group that is already up is joined as it is.  Otherwise the
   explicit arguments, else ``torchrun``'s environment, give the rank and
@@ -91,7 +104,8 @@ def init_process_group(device="cuda", *, rank: Optional[int] = None,
                   else local_rank)
     return ProcessMesh(rank, world, local_rank,
                        _resolve_device(device, local_rank),
-                       dist.group.WORLD, dist.get_backend())
+                       dist.group.WORLD, dist.get_backend(),
+                       control=_control_group())
   if world_size is None and "WORLD_SIZE" not in env:
     return ProcessMesh(0, 1, 0, _resolve_device(device, 0))
   world = int(env["WORLD_SIZE"]) if world_size is None else int(world_size)
@@ -106,7 +120,13 @@ def init_process_group(device="cuda", *, rank: Optional[int] = None,
       backend, init_method=init_method or "env://", rank=rank,
       world_size=world, timeout=TIMEOUT)
   return ProcessMesh(rank, world, local_rank, device, dist.group.WORLD,
-                     backend, owns_group=True)
+                     backend, owns_group=True, control=_control_group())
+
+
+def _control_group():
+  """A gloo group of every process (the control plane); raises when it
+  does not form."""
+  return dist.new_group(backend="gloo", timeout=TIMEOUT)
 
 
 def data_axis_size(mesh_data: int, mesh_model: int, world: int) -> int:
@@ -143,10 +163,12 @@ def to_host(tree: Any) -> Any:
 
 @dataclasses.dataclass(frozen=True)
 class MeshRules:
-  """The mesh a training job runs under; `create` registers it as the
-  ambient mesh (`parallel.context`), as the JAX package's does."""
+  """The mesh a job runs under; `create` registers it as the ambient mesh
+  (`parallel.context`), as the JAX package's does, and `shutdown` gives
+  the ambient mesh back to the one it replaced."""
 
   mesh: ProcessMesh
+  previous: Any = None
 
   @classmethod
   def create(cls, data: int = -1, model: int = 1, device="cuda",
@@ -155,16 +177,21 @@ class MeshRules:
     try:
       data_axis_size(data, model, mesh.world)
     except ValueError:
-      if mesh.owns_group:
-        dist.destroy_process_group()
+      cls(mesh).shutdown()
       raise
+    previous = context.get_ambient_mesh()
     context.set_ambient_mesh(mesh)
-    return cls(mesh)
+    return cls(mesh, previous)
 
   def shutdown(self) -> None:
-    """Clears the ambient mesh and ends a group `create` started."""
+    """Restores the ambient mesh and ends the groups `create` started: the
+    control group, and the main group when `create` started it."""
     if context.get_ambient_mesh() is self.mesh:
-      context.set_ambient_mesh(None)
-    if self.mesh.owns_group and dist.is_initialized():
+      context.set_ambient_mesh(self.previous)
+    if not dist.is_initialized():
+      return
+    if self.mesh.owns_group:
       dist.destroy_process_group()
+    elif self.mesh.control is not None:
+      dist.destroy_process_group(self.mesh.control)
 

@@ -153,5 +153,12 @@ class CheckpointManager:
     steps = self.all_steps()
     return steps[-1] if steps else None
 
+  def agreed_latest_step(self) -> Optional[int]:
+    """`latest_step` as process 0 of the ambient process group lists it,
+    on every process (a checkpoint may land while the others list)."""
+    latest = self.latest_step()
+    step = collectives.broadcast_int(-1 if latest is None else latest)
+    return None if step < 0 else step
+
   def all_steps(self) -> List[int]:
     return list_steps(self.directory)

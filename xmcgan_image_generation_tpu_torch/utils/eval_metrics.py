@@ -1,10 +1,14 @@
 """FID and Inception Score of generator checkpoints (the JAX package's
-``utils/eval_metrics.py``, for one device).
+``utils/eval_metrics.py``).
 
 The real images' Inception statistics are computed once; then each
 checkpoint generates ``eval_num`` images with its normal and its EMA
 weights, runs them through InceptionV3 and reports FID and IS averaged
-over ``eval_avg_num`` repeats.  Inception weights load from a converted
+over ``eval_avg_num`` repeats.  Over a process group each process runs
+its rows of every global batch and ``eval_num`` counts global rows, as
+the JAX package counts the rows of its global arrays; the statistics
+merge once a pass (`utils.fid`), and every process computes FID and IS
+from the merged statistics.  Inception weights load from a converted
 ``.npz`` when ``config.inception_ckpt_path`` is set; otherwise the tower
 is randomly initialized from a fixed seed, which tracks relative progress
 but is not comparable to published FID.
@@ -74,8 +78,14 @@ class EvalMetric:
   Host-clock timings: ``real_seconds`` of the real statistics; of the last
   `calculate_inception_fid`, ``last_seconds`` in all and
   ``last_generate_seconds`` of those spent generating the images and
-  running Inception on them (the rest is the host's FID and IS math), and
-  ``last_images``, the generated images it scored (both weight sets).
+  running Inception on them and adding their rows to the statistics (the
+  rest is the merge and the host's FID and IS math),
+  ``last_host_seconds`` of those spent adding rows (the device
+  synchronized first, the copy to the host included) over
+  ``last_host_batches`` batches of one weight set, and ``last_images``,
+  the generated images this process scored (both weight sets).  Also of
+  the last pass: ``last_statistics``, ``{"normal" | "ema": (mu, sigma,
+  inception_score)}``, merged over the processes.
   """
 
   def __init__(self, eval_iter: Iterator[Dict[str, np.ndarray]], config,
@@ -90,7 +100,9 @@ class EvalMetric:
     ckpt = inception_ckpt_path or config.get("inception_ckpt_path", "")
     self._inception = make_inception_fn(ckpt or None, self.device)
     self.last_seconds = self.last_generate_seconds = 0.0
-    self.last_images = 0
+    self.last_host_seconds = 0.0
+    self.last_images = self.last_host_batches = 0
+    self.last_statistics = {}
     start = time.perf_counter()
     self._real_mu, self._real_sigma = self._compute_real_statistics()
     self.real_seconds = time.perf_counter() - start
@@ -106,10 +118,14 @@ class EvalMetric:
     seen = 0
     while seen < self.eval_num:
       pool, _ = self._inception(image_to_float(self._next_batch()["image"]))
-      take = min(pool.shape[0], self.eval_num - seen)
+      take = min(fid_lib.global_rows(pool), self.eval_num - seen)
       stats.update(pool, take)
       seen += take
     return stats.compute()
+
+  def _sync(self) -> None:
+    if self.device is not None and self.device.type == "cuda":
+      torch.cuda.synchronize(self.device)
 
   def _generated_statistics(self, state: TrainState,
                             rng: Optional[torch.Generator]):
@@ -123,14 +139,20 @@ class EvalMetric:
     seen = 0
     while seen < self.eval_num:
       out = generate_batch(state, self._next_batch(), self.config, rng)
-      take = min(out["generated_image"].shape[0], self.eval_num - seen)
+      rows = out["generated_image"].shape[0]
+      take = min(fid_lib.global_rows(out["generated_image"]),
+                 self.eval_num - seen)
       for key, images in (("normal", out["generated_image"]),
                           ("ema", out["ema_generated_image"])):
         pool, probs = self._inception(images)
+        self._sync()
+        t0 = time.perf_counter()
         pool_stats[key].update(pool, take)
         is_stats[key].update(probs, take)
+        self.last_host_seconds += time.perf_counter() - t0
+        self.last_host_batches += 1
       seen += take
-      self.last_images += 2 * take
+      self.last_images += 2 * fid_lib.kept_rows(rows, take)
     return pool_stats, is_stats
 
   def calculate_inception_fid(self, state: TrainState,
@@ -140,8 +162,8 @@ class EvalMetric:
     ``(fid, fid_std, is, is_std, ema_fid, ema_fid_std, ema_is,
     ema_is_std)``."""
     start = time.perf_counter()
-    self.last_images = 0
-    self.last_generate_seconds = 0.0
+    self.last_images = self.last_host_batches = 0
+    self.last_generate_seconds = self.last_host_seconds = 0.0
     fids = {"normal": [], "ema": []}
     iss = {"normal": [], "ema": []}
     for _ in range(self.avg_num):
@@ -153,6 +175,7 @@ class EvalMetric:
         fids[key].append(fid_lib.frechet_distance(
             mu, sigma, self._real_mu, self._real_sigma))
         iss[key].append(is_stats[key].compute()[0])
+        self.last_statistics[key] = (mu, sigma, iss[key][-1])
     self.last_seconds = time.perf_counter() - start
     return (
         float(np.mean(fids["normal"])), float(np.std(fids["normal"])),

@@ -1,12 +1,18 @@
 """FID and Inception Score with streaming statistics (the JAX package's
-``utils/fid.py``, for one process).
+``utils/fid.py``).
 
 Feature batches (tensors on any device, or numpy) are pulled to the host
 and accumulated in float64: over 30000 x 2048 pools the one-pass
 ``E[XX^T] - mu mu^T`` formula loses digits in float32.  The host product
-is one ``dim x dim`` GEMM per batch.  The JAX package's per-process
-shard walk and cross-process sum wait for the multi-process evaluation
-service (``ROADMAP.md``).
+is one ``dim x dim`` GEMM per batch.
+
+Over a process group (the ambient mesh, `parallel.context`) a batch is
+this process's rows of a global batch, process-major, as the eval
+loader's shards give them (`data.pipeline.create_datasets`): ``count``
+and the Inception Score's splits are in *global* rows, each process
+accumulates only its own rows (`local_rows`), and ``compute`` merges the
+sums once, through `parallel.collectives.host_sum`, never per batch.  A
+process whose rows are all cut away still joins every merge.
 """
 
 from __future__ import annotations
@@ -16,15 +22,42 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from xmcgan_image_generation_tpu_torch.parallel import collectives
+from xmcgan_image_generation_tpu_torch.parallel import context
 
-def _host_rows(features, count: Optional[int] = None) -> np.ndarray:
-  """The first ``count`` rows (all without it) as float64 numpy."""
+
+def _world_rank(mesh=None) -> Tuple[int, int]:
+  mesh = mesh if mesh is not None else context.active_mesh()
+  return (1, 0) if mesh is None else (mesh.world, mesh.rank)
+
+
+def local_rows(features, count: Optional[int] = None, mesh=None
+               ) -> np.ndarray:
+  """This process's rows of a process-major global batch, as float64
+  numpy, kept only where they fall within its first ``count`` global rows
+  (all of them without ``count``): with ``b`` rows a process, process
+  ``r`` keeps ``clamp(count - r * b, 0, b)``, the JAX package's
+  ``_rows_from_shards`` rule.  ``mesh`` defaults to the ambient one;
+  without a group the rows are the whole batch."""
   if isinstance(features, torch.Tensor):
     features = features.detach().to("cpu", torch.float64).numpy()
   feats = np.asarray(features, np.float64)
-  if count is not None and int(count) < feats.shape[0]:
-    feats = feats[:int(count)]
-  return feats
+  if count is None:
+    return feats
+  return feats[:kept_rows(feats.shape[0], count, mesh)]
+
+
+def kept_rows(rows: int, count: int, mesh=None) -> int:
+  """How many of this process's ``rows`` fall within the first ``count``
+  global rows (`local_rows`)."""
+  _, rank = _world_rank(mesh)
+  return min(max(int(count) - rank * int(rows), 0), int(rows))
+
+
+def global_rows(features) -> int:
+  """The rows of the global batch whose local rows ``features`` holds."""
+  world, _ = _world_rank()
+  return int(features.shape[0]) * world
 
 
 class StreamingGaussianStats:
@@ -40,20 +73,23 @@ class StreamingGaussianStats:
     self._count = 0
 
   def update(self, features, count: Optional[int] = None) -> None:
-    """Adds a ``[n, dim]`` batch (only its first ``count`` rows when given,
-    to trim the last partial batch)."""
-    feats = _host_rows(features, count)
+    """Adds this process's rows of a ``[n, dim]`` global batch (only those
+    within its first ``count`` global rows when given, to trim the last
+    partial batch)."""
+    feats = local_rows(features, count)
     self._sum += feats.sum(axis=0)
     self._outer += feats.T @ feats
     self._count += feats.shape[0]
 
   def compute(self) -> Tuple[np.ndarray, np.ndarray]:
-    """``(mu, sigma)`` of what was added."""
-    n = self._count
+    """``(mu, sigma)`` of what every process added."""
+    total_sum, total_outer, n = collectives.host_sum(
+        self._sum, self._outer, np.int64(self._count))
+    n = int(n)
     if n < 2:
       raise ValueError(f"Need >= 2 samples, got {n}")
-    mu = self._sum / n
-    sigma = (self._outer - n * np.outer(mu, mu)) / (n - 1)
+    mu = total_sum / n
+    sigma = (total_outer - n * np.outer(mu, mu)) / (n - 1)
     return mu, sigma
 
 
@@ -114,10 +150,11 @@ class StreamingInceptionScore:
     self._seen = 0
 
   def update(self, probs, count: Optional[int] = None) -> None:
-    """Adds a ``[n, classes]`` batch of softmax probabilities, all to the
-    split of its first row."""
-    n = probs.shape[0] if count is None else int(count)
-    local = _host_rows(probs, n)
+    """Adds this process's rows of a ``[n, classes]`` global batch of
+    softmax probabilities (those within its first ``count`` global rows
+    when given), all to the split of the batch's first global row."""
+    n = global_rows(probs) if count is None else int(count)
+    local = local_rows(probs, n)
     split = self._split_of(self._seen)
     self._plogp[split] += np.sum(local * np.log(local + 1e-16))
     self._psum[split] += local.sum(axis=0)
@@ -125,14 +162,17 @@ class StreamingInceptionScore:
     self._seen += n
 
   def compute(self) -> Tuple[float, float]:
-    """Mean and standard deviation of the score over the splits."""
+    """Mean and standard deviation of the score over the splits, of what
+    every process added."""
+    plogp, psum, counts = collectives.host_sum(self._plogp, self._psum,
+                                               self._counts)
     scores = []
     for s in range(self.num_splits):
-      n = int(self._counts[s])
+      n = int(counts[s])
       if not n:
         continue
-      mean_p = self._psum[s] / n
-      mean_plogp = float(self._plogp[s]) / n
+      mean_p = psum[s] / n
+      mean_plogp = float(plogp[s]) / n
       kl = mean_plogp - float(np.sum(mean_p * np.log(mean_p + 1e-16)))
       scores.append(np.exp(kl))
     return float(np.mean(scores)), float(np.std(scores))

@@ -15,8 +15,16 @@ nothing but ``torch``: no port, no checkpoint, no configuration.  The
 program is traced on the device the caller names (``cuda`` by default)
 and its weights live there; it serves on that device.
 
-Not ported: the JAX package's sharded (``mesh``) export, which waits for
-the port's multi-GPU path.
+`export_from_workdir` (``--mode=export``) runs in every process of a
+``torchrun`` job: process 0 restores the checkpoint and writes the
+artifacts once, the others wait for it and return the same paths.  (The
+JAX package lets every process write the same files.)
+
+Not ported: the JAX package's ``export_generator(mesh=...)``, one
+artifact whose single call splits a batch over the consumer's devices.
+A ``torch.export`` program lives on one device and has no multi-device
+form, so that artifact waits for a design: one program per device behind
+a splitting wrapper, or a program with the collectives inside it.
 """
 
 from __future__ import annotations
@@ -238,10 +246,11 @@ def export_from_workdir(config, workdir: str, *, step: Optional[int] = None,
   artifacts, ``generator_{ema|normal}[_int8]_step{N:08d}.pt2`` and its
   ``.json``, under ``{workdir}/serving`` (or ``out_dir``); returns the
   artifacts' paths.  ``weights`` is ``"ema"``, ``"normal"`` or
-  ``"both"``."""
-  from xmcgan_image_generation_tpu_torch.engine.state import (
-      create_train_state,
-  )
+  ``"both"``.  ``device`` is ``cuda:LOCAL_RANK`` for ``"cuda"``; over a
+  process group process 0 alone restores and writes, and the others
+  return the same paths once it has."""
+  from xmcgan_image_generation_tpu_torch.parallel import collectives
+  from xmcgan_image_generation_tpu_torch.parallel.mesh import MeshRules
   from xmcgan_image_generation_tpu_torch.utils.checkpoint import (
       CheckpointManager,
       checkpoints_dir,
@@ -249,29 +258,48 @@ def export_from_workdir(config, workdir: str, *, step: Optional[int] = None,
 
   if weights not in ("ema", "normal", "both"):
     raise ValueError(f"weights must be ema|normal|both, got {weights!r}")
-  device = check_device(device)
-  ckpt = CheckpointManager(checkpoints_dir(workdir))
-  step = step if step is not None else ckpt.latest_step()
-  if step is None:
-    raise FileNotFoundError(f"No checkpoints in {checkpoints_dir(workdir)}")
+  rules = MeshRules.create(config.get("mesh_data", -1),
+                           config.get("mesh_model", 1), device=device)
+  try:
+    mesh = rules.mesh
+    ckpt = CheckpointManager(checkpoints_dir(workdir))
+    step = step if step is not None else ckpt.agreed_latest_step()
+    if step is None:
+      raise FileNotFoundError(
+          f"No checkpoints in {checkpoints_dir(workdir)}")
+    out_dir = out_dir or fileio.join(workdir, "serving")
+    names = {"ema": ["ema"], "normal": ["normal"],
+             "both": ["ema", "normal"]}[weights]
+    suffix = f"_{quantize}" if quantize else ""
+    bases = [fileio.join(out_dir, f"generator_{name}{suffix}_step{step:08d}")
+             for name in names]
+    if mesh.is_main:
+      _write_artifacts(config, ckpt, step, names, bases, mesh.device,
+                       batch_size, quantize)
+    collectives.host_barrier()   # the artifacts are down
+    return [base + ".pt2" for base in bases]
+  finally:
+    rules.shutdown()
+
+
+def _write_artifacts(config, ckpt, step: int, names: List[str],
+                     bases: List[str], device: torch.device,
+                     batch_size: Optional[int],
+                     quantize: Optional[str]) -> None:
+  from xmcgan_image_generation_tpu_torch.engine.state import (
+      create_train_state,
+  )
+
   state = ckpt.restore(step, create_train_state(config, device,
                                                 seed=config.seed))
-  out_dir = out_dir or fileio.join(workdir, "serving")
-  fileio.makedirs(out_dir)
-  names = {"ema": ["ema"], "normal": ["normal"],
-           "both": ["ema", "normal"]}[weights]
-  written = []
-  for name in names:
+  fileio.makedirs(fileio.dirname(bases[0]))
+  for name, base in zip(names, bases):
     params = state.ema_params if name == "ema" else None
     exported = export_generator(state.generator, params, config,
                                 batch_size=batch_size, quantize=quantize,
                                 device=device)
-    suffix = f"_{quantize}" if quantize else ""
-    base = fileio.join(out_dir, f"generator_{name}{suffix}_step{step:08d}")
     torch.export.save(exported, base + ".pt2")
     with open(base + ".json", "w") as f:
       f.write(artifact_metadata(config, weights=name, step=step,
                                 batch_size=batch_size, device=device,
                                 quantize=quantize))
-    written.append(base + ".pt2")
-  return written

@@ -1,6 +1,7 @@
-"""Experiment services for one process: the checkpoint poller of the
-evaluation job and the ``scores.csv`` writer (the JAX package's
-``utils/task_manager.py``).
+"""Experiment services: the checkpoint poller of the evaluation job and
+the ``scores.csv`` writer (the JAX package's ``utils/task_manager.py``).
+In a service of several processes only process 0 polls and writes
+(`evaluate._synchronized_steps`).
 
 `TaskManager.unevaluated_checkpoints` polls the training job's checkpoint
 directory, yields the steps not evaluated yet and returns on timeout or
@@ -16,7 +17,8 @@ import csv
 import io
 import logging
 import time
-from typing import Dict, Iterable, Iterator, List, Optional, Set
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Set)
 
 from xmcgan_image_generation_tpu_torch.utils import checkpoint
 from xmcgan_image_generation_tpu_torch.utils import fileio
@@ -45,11 +47,15 @@ class TaskManager:
     return checkpoint.list_steps(self.checkpoint_dir)
 
   def unevaluated_checkpoints(self, timeout: float = 3600 * 8,
-                              poll_interval: float = 5.0) -> Iterator[int]:
+                              poll_interval: float = 5.0,
+                              poll_callback: Optional[Callable[[], None]]
+                              = None) -> Iterator[int]:
     """Yields the steps of checkpoints not evaluated yet as they appear,
     polling every ``poll_interval`` seconds; returns when training is
     marked done and all is evaluated, or when no new checkpoint appeared
-    for ``timeout`` seconds."""
+    for ``timeout`` seconds.  ``poll_callback`` is called once each idle
+    poll, before the sleep: the hook through which the multi-process
+    service sends its heartbeats while it waits."""
     log.info("Looking for checkpoints in %s", self.checkpoint_dir)
     evaluated: Set[int] = set(self._evaluated_steps())
     last_eval = time.time()
@@ -68,6 +74,8 @@ class TaskManager:
                  timeout)
         return
       if not unevaluated:
+        if poll_callback is not None:
+          poll_callback()
         time.sleep(poll_interval)
 
   def _evaluated_steps(self) -> Iterable[int]:
