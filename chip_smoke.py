@@ -105,7 +105,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    appended no score and wrote no grid or artifact; prints each process's
    scoring seconds, host-statistics ms a batch and control-plane counts
    beside phase 6's one process.  None of kernels A-D is on these paths;
-10. prints the kernel records as one JSON line, the card line, and last
+10. the reference-layout generator (``g_spectral_norm=True``, so
+   ``GenSpatialBlock`` and ``LocalConditionalBatchNorm`` on the
+   concatenated, upsampled conditioning map, every G layer spectrally
+   normalized): (a) trains the flagship configuration with it through
+   ``train.train`` for 2 warm-up and 3 timed steps, checks the losses
+   are finite, that A (both directions), B and C launched, and that G's
+   ``u0`` moved across every joint update and across no critic update,
+   and prints the step time, images/s and peak memory; (b) holds a fused
+   and a reference plain G (the latter's kernels split by
+   ``split_modulation_kernels``) against each other at full width, 56
+   rows, float32 and bfloat16; (c) exports (a)'s EMA G through
+   ``export_from_workdir`` (bf16 and int8), loads each artifact with
+   ``torch.export.load`` and serves batch 8 against the eager
+   ``ServingGenerator``; (d) profiles an outer step of (a)'s state and
+   one of a fused state (b's fused G, a's D) on one super-batch held on
+   the card and prints their device time by group;
+11. prints the kernel records as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.  Any failed phase exits non-zero before
@@ -758,6 +774,7 @@ def check_remat(torch, card):
   microbatch of 8 in float32, with remat off, "full" and "conv" from the
   same weights: D's gradients agree, and each ``u0`` advanced once."""
   from xmcgan_image_generation_tpu_torch.configs import coco_xmc_256
+  from xmcgan_image_generation_tpu_torch import profile_step
   from xmcgan_image_generation_tpu_torch.data import synthetic
   from xmcgan_image_generation_tpu_torch.engine import xmc_gan
   from xmcgan_image_generation_tpu_torch.engine.state import (
@@ -786,8 +803,8 @@ def check_remat(torch, card):
   with torch.no_grad():
     once, twice = {}, {}
     for name, m in layers.items():
-      _, u1 = power_iteration_normalize(m._kernel_2d(), m.u0)
-      _, u2 = power_iteration_normalize(m._kernel_2d(), u1)
+      _, u1 = power_iteration_normalize(m._kernel_2d(m.kernel), m.u0)
+      _, u2 = power_iteration_normalize(m._kernel_2d(m.kernel), u1)
       once[name], twice[name] = u1, u2
   results = {}
   # Deterministic cuDNN algorithms, so that the three updates may differ
@@ -2364,6 +2381,342 @@ def _phase9_checks(torch, card, config, workdir, root, step, phase6,
       fail(f"phase 9c: batch {b} serves other images than phase 7's")
 
 
+TIMED_STEPS_REF = 3      # the reference-layout phase's timed steps
+PROFILE_STEPS = 2        # profiled steps a layout, after the timed ones
+REF_SERVE_BATCH = 8      # phase 10c's request batch
+# Phase 10b: the fused and the reference layout are one function in exact
+# arithmetic; they sum each 1x1 modulation conv in another order (one
+# 1024-channel conv of the full-resolution concatenation against a
+# 768-channel conv at 16 x 16 plus a 256-wide dense) and cuDNN picks its
+# algorithms by shape.  In float32 (TF32 off) that leaves rounding, and
+# images in [0, 1] are held to 1e-4.  In bfloat16 each layout rounds its
+# modulation at other places, so the two may differ by as much as
+# rounding to bfloat16 moves either: the bfloat16 gap between the layouts
+# is held to the gap between the fused G in bfloat16 and in float32 on the
+# same weights.
+FUSED_VS_REFERENCE_F32_ATOL = 1e-4
+
+
+def reference_config(steps=WARMUP_STEPS + TIMED_STEPS_REF):
+  """The flagship with the spectral reference-layout G: the JAX package
+  reads ``g_spectral_norm=True`` as the reference layout whatever
+  ``fused_spatial_cond`` says; both are set as a user of the reference
+  layout sets them."""
+  config = flagship_config()
+  config.update(fused_spatial_cond=False, g_spectral_norm=True,
+                num_train_steps=steps)
+  return config
+
+
+def train_reference(torch, records, card, workdir, flagship_steps, dev):
+  """Phase 10a: train.train with the spectral reference-layout G, G's
+  ``u0`` read before and after every update."""
+  from xmcgan_image_generation_tpu_torch import train as train_lib
+  from xmcgan_image_generation_tpu_torch.engine import xmc_gan
+  from xmcgan_image_generation_tpu_torch.ops.cuda import ntxent
+  from xmcgan_image_generation_tpu_torch.ops.cuda import word_scores as ws
+
+  config = reference_config()
+  images_per_step = config.batch_size * config.d_step_per_g_step
+  print(f"phase 10a: train.train, {config.image_size}px, "
+        f"{config.d_step_per_g_step} x {config.batch_size}, {config.dtype}, "
+        f"gf_dim={config.gf_dim}, df_dim={config.df_dim}, "
+        f"fused_spatial_cond={config.fused_spatial_cond}, "
+        f"g_spectral_norm={config.g_spectral_norm} (the reference layout), "
+        f"{config.num_train_steps} steps, synthetic source", flush=True)
+  counters = {"ntxent": ntxent.ntxent_stats, "ntxent_bwd": ntxent.ntxent_bwd,
+              "word_scores_fwd": ws.scores, "word_scores_drn": ws.drn}
+  updates = {"train_d": [], "train_g_d": []}
+  originals = {name: getattr(xmc_gan, name) for name in updates}
+
+  def u0s(state):
+    return [b.detach().clone() for n, b in state.generator.named_buffers()
+            if n.endswith("u0")]
+
+  def watched(name):
+    def call(state, *args, **kw):
+      before = u0s(state)
+      out = originals[name](state, *args, **kw)
+      updates[name].append((before, u0s(state)))
+      return out
+    return call
+
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  for fn in counters.values():
+    fn.launches = 0
+  for name in updates:
+    setattr(xmc_gan, name, watched(name))
+  try:
+    state = train_lib.train(config, workdir, dev)
+  finally:
+    for name, fn in originals.items():
+      setattr(xmc_gan, name, fn)
+  peak = torch.cuda.max_memory_allocated()
+  launches = {name: fn.launches for name, fn in counters.items()}
+  if state.generator.fused or not any(
+      n.endswith("u0") for n, _ in state.generator.named_buffers()):
+    fail("phase 10a: the generator is not the spectral reference layout")
+  lines = loss_lines(workdir)
+  for line in lines:
+    print(f"  {json.dumps(line)}", flush=True)
+  if len(lines) != config.num_train_steps:
+    fail(f"phase 10a: {len(lines)} metric lines for "
+         f"{config.num_train_steps} steps")
+  for line in lines:
+    for key, value in line.items():
+      if not math.isfinite(value):
+        fail(f"phase 10a, step {line['step']}: {key} = {value}")
+  for name, count in launches.items():
+    per_step = records[name]["launches"] / flagship_steps
+    want = per_step * config.num_train_steps
+    print(f"  launches during the steps: {name} = {count} (the fused "
+          f"flagship's {per_step:g} a step x {config.num_train_steps} steps "
+          f"= {want:g})", flush=True)
+    if count <= 0:
+      fail(f"phase 10a: kernel {name} was not launched")
+    records[name]["launches_by_path"]["reference_128"] = count
+  for name, calls in updates.items():
+    moved = [sum(not torch.equal(a, b) for a, b in zip(before, after))
+             for before, after in calls]
+    total = len(calls[0][0])
+    print(f"  G's u0 buffers ({total}) that moved across each {name}: "
+          f"{moved}", flush=True)
+    if len(calls) != config.num_train_steps:
+      fail(f"phase 10a: {len(calls)} calls of {name}")
+    if name == "train_d" and any(moved):
+      fail("phase 10a: the critic update advanced G's u0")
+    if name == "train_g_d" and not all(moved):
+      fail("phase 10a: a joint update left all of G's u0 in place")
+  step_summary(lines, images_per_step, card)
+  print(f"  peak device memory: {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated)", flush=True)
+  with open(os.path.join(workdir, "checkpoints.jsonl")) as f:
+    saves = [json.loads(line) for line in f]
+  print(f"  checkpoint at step {saves[-1]['step']}: "
+        f"{saves[-1]['seconds']:.2f} s, {saves[-1]['bytes']} bytes "
+        f"({card})", flush=True)
+  return config, state
+
+
+def fused_vs_reference(torch, dev):
+  """Phase 10b: a reference plain G and a fused plain G on its kernels
+  split by ``split_modulation_kernels``, at full width on the card, in
+  float32 and bfloat16: the images of 56 rows (train mode, batch
+  statistics, nothing written)."""
+  import numpy as np
+
+  from xmcgan_image_generation_tpu_torch.data import synthetic
+  from xmcgan_image_generation_tpu_torch.models import xmc_net
+  from xmcgan_image_generation_tpu_torch.ops.normalization import (
+      frozen_state,
+  )
+  from xmcgan_image_generation_tpu_torch.utils import bridge
+  from xmcgan_image_generation_tpu_torch.utils import reference_bridge
+
+  base = flagship_config()
+  batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic.super_batch(
+      base, np.random.default_rng(3), n=base.batch_size).items()}
+  images = {}
+  for dtype in ("float32", "bfloat16"):
+    ref_config, fused_config = type(base)(base), type(base)(base)
+    ref_config.update(dtype=dtype, fused_spatial_cond=False)
+    fused_config.update(dtype=dtype, fused_spatial_cond=True)
+    ref = xmc_net.Generator(ref_config, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+    variables = bridge.jax_from_state_dict(ref.state_dict())
+    fused = xmc_net.Generator(fused_config, device="meta").to_empty(
+        device=dev)
+    bridge.load_jax_variables(fused, {
+        "params": reference_bridge.split_modulation_kernels(
+            variables["params"]),
+        "batch_stats": reference_bridge.rename_state_for_fused(
+            variables["batch_stats"])})
+    for is_fused, g in ((False, ref), (True, fused)):
+      g.train()
+      with torch.no_grad(), frozen_state(g):
+        images[(dtype, is_fused)] = g(batch, batch["z"]).float()
+    fused_weights = fused.state_dict()
+    del ref, fused
+  torch.cuda.synchronize()
+  gap = {d: float((images[(d, True)] - images[(d, False)]).abs().max())
+         for d in ("float32", "bfloat16")}
+  mean_gap = {d: float((images[(d, True)] - images[(d, False)]).abs().mean())
+              for d in ("float32", "bfloat16")}
+  bf16_own = float((images[("bfloat16", True)]
+                    - images[("float32", True)]).abs().max())
+  print(f"phase 10b: fused against reference plain G at {base.image_size}px, "
+        f"width {base.gf_dim}, {base.batch_size} rows, weights split by "
+        f"split_modulation_kernels: max |diff| float32 {gap['float32']:.3e} "
+        f"(mean {mean_gap['float32']:.3e}; tolerance "
+        f"{FUSED_VS_REFERENCE_F32_ATOL}), bfloat16 {gap['bfloat16']:.3e} "
+        f"(mean {mean_gap['bfloat16']:.3e}; tolerance: the fused G's own "
+        f"bfloat16-vs-float32 gap {bf16_own:.3e})", flush=True)
+  if not gap["float32"] <= FUSED_VS_REFERENCE_F32_ATOL:
+    fail("phase 10b: the layouts disagree in float32")
+  if not gap["bfloat16"] <= bf16_own:
+    fail("phase 10b: the layouts disagree in bfloat16 by more than "
+         "bfloat16 rounding moves the fused G")
+  return fused_weights
+
+
+def serve_reference(torch, card, workdir, config, state, dev):
+  """Phase 10c: phase 10a's EMA G exported (bf16 and int8) through
+  export_from_workdir from its checkpoint, loaded with
+  ``torch.export.load`` and served at batch 8 against the eager
+  ``ServingGenerator`` of phase 10a's final ``state``, which that
+  checkpoint holds."""
+  from xmcgan_image_generation_tpu_torch.utils import serving
+
+  b = REF_SERVE_BATCH
+  rng = torch.Generator().manual_seed(11)
+  x = [v.to(dev) for v in (
+      torch.randn(b, serving.BERT_DIM, generator=rng),
+      torch.randn(b, serving.COCO_MAX_TEXT_LENGTH, serving.BERT_DIM,
+                  generator=rng),
+      torch.randint(3, serving.COCO_MAX_TEXT_LENGTH + 1, (b, 1),
+                    generator=rng).float(),
+      torch.randn(b, config.z_dim, generator=rng))]
+  served = {}
+  for name, quantize in (("bf16", None), ("int8", "int8")):
+    t0 = time.perf_counter()
+    (path,) = serving.export_from_workdir(config, workdir, batch_size=b,
+                                          device=dev, quantize=quantize)
+    t1 = time.perf_counter()
+    program = torch.export.load(path).module()
+    t2 = time.perf_counter()
+    with torch.no_grad():
+      got = program(*x)
+      want = serving.ServingGenerator(config, state.generator,
+                                      state.ema_params,
+                                      quantize=quantize).to(dev)(*x)
+    err = float((got - want).abs().max())
+    served[name] = got
+    print(f"phase 10c: {name} artifact of phase 10a's EMA G (static batch "
+          f"{b}): export_from_workdir {t1 - t0:.2f} s, "
+          f"{os.path.getsize(path)} bytes, load {t2 - t1:.2f} s; against "
+          f"the eager ServingGenerator max |diff| {err:.3e} (tolerance "
+          f"{SERVE_ATOL}) ({card})", flush=True)
+    if got.shape != (b, config.image_size, config.image_size, 3) or not (
+        bool(torch.isfinite(got).all())):
+      fail(f"phase 10c: {name} served {tuple(got.shape)}, or not finite")
+    if err > SERVE_ATOL:
+      fail(f"phase 10c: the {name} artifact differs from eager G by {err}")
+  print(f"  int8 against bf16 artifact: max |diff| "
+        f"{float((served['int8'] - served['bf16']).abs().max()):.4f}, mean "
+        f"{float((served['int8'] - served['bf16']).abs().mean()):.4f}",
+        flush=True)
+
+
+def profile_layouts(torch, card, dev, ref_state, fused_weights):
+  """Phase 10d: device time a step by group of the reference layout's
+  outer step against the fused flagship's, in this call.  Each takes
+  ``engine.step.train_step`` on one super-batch held on the card (the
+  loader is not on the device's path), a warm-up step and then
+  ``PROFILE_STEPS`` steps under ``torch.profiler``: the reference from
+  phase 10a's trained state, the fused one from phase 10b's bfloat16
+  fused G with phase 10a's D."""
+  import numpy as np
+
+  from xmcgan_image_generation_tpu_torch import profile_step
+  from xmcgan_image_generation_tpu_torch.data import synthetic
+  from xmcgan_image_generation_tpu_torch.engine import xmc_gan
+  from xmcgan_image_generation_tpu_torch.engine.state import (
+      TrainState,
+      create_optimizers,
+  )
+  from xmcgan_image_generation_tpu_torch.engine.step import train_step
+  from xmcgan_image_generation_tpu_torch.models import xmc_net
+
+  t0 = time.perf_counter()
+  fused_config = flagship_config()
+  g = xmc_net.Generator(fused_config, device="meta").to_empty(device=dev)
+  g.load_state_dict(fused_weights)
+  d = ref_state.discriminator
+  g_opt, d_opt = create_optimizers(fused_config, g, d)
+  fused_state = TrainState(
+      step=0, generator=g, discriminator=d, g_opt=g_opt, d_opt=d_opt,
+      ema_params={n: p.detach().clone() for n, p in g.named_parameters()})
+  additional_data = xmc_gan.create_additional_data(fused_config, dev)
+  batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic.super_batch(
+      fused_config, np.random.default_rng(5)).items()}
+  seconds = {"set-up": time.perf_counter() - t0}
+  results = {}
+
+  def device_ms(prof):
+    """(device ms a step, {group: ms a step})."""
+    groups = {}
+    for evt in prof.key_averages():
+      if evt.device_type == torch.autograd.DeviceType.CUDA and (
+          evt.self_device_time_total > 0):
+        group = profile_step._group(evt.key)
+        groups[group] = (groups.get(group, 0.0)
+                         + evt.self_device_time_total / 1e3 / PROFILE_STEPS)
+    return sum(groups.values()), groups
+
+  for label, state, config in (("reference", ref_state, reference_config()),
+                               ("fused", fused_state, fused_config)):
+    t0 = time.perf_counter()
+    train_step(state, batch, config, additional_data)
+    torch.cuda.synchronize()
+    seconds[f"{label} warm-up"] = time.perf_counter() - t0
+
+    def steps():
+      t0 = time.perf_counter()
+      for _ in range(PROFILE_STEPS):
+        train_step(state, batch, config, additional_data)
+      torch.cuda.synchronize()
+      return (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
+
+    t0 = time.perf_counter()
+    # The card's activity alone: with the host's recorded too, the
+    # optimizer's ``record_function`` range comes back as one more device
+    # event over its kernels and counts their time twice.
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+      wall = steps()
+    seconds[f"{label} window"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results[label] = device_ms(prof) + (wall,)
+    seconds[f"{label} accounting"] = time.perf_counter() - t0
+  ref, fused = results["reference"], results["fused"]
+  if not (ref[0] > 0 and fused[0] > 0):
+    fail("phase 10d: the profiler saw no device time")
+  print(f"phase 10d: device time an outer step ({PROFILE_STEPS} profiled "
+        f"steps after 1 warm-up, torch.profiler): reference layout "
+        f"{ref[0]:.2f} ms, fused {fused[0]:.2f} ms, difference "
+        f"{ref[0] - fused[0]:+.2f} ms; profiled wall {ref[2]:.2f} / "
+        f"{fused[2]:.2f} ms a step ({card})", flush=True)
+  for group in sorted(set(ref[1]) | set(fused[1]),
+                      key=lambda g: -ref[1].get(g, 0.0)):
+    a, b = ref[1].get(group, 0.0), fused[1].get(group, 0.0)
+    print(f"  {group}: reference {a:.2f} ms, fused {b:.2f} ms "
+          f"({a - b:+.2f})", flush=True)
+  print(f"  phase 10d's seconds: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
+
+
+def reference_phase(torch, records, card, dev, flagship_steps):
+  """Phase 10: the reference-layout generator on the card."""
+  import gc
+
+  def part(label, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (phase {label}: {time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
+
+  with tempfile.TemporaryDirectory() as workdir:
+    config, state = part("10a", train_reference, torch, records, card,
+                         workdir, flagship_steps, dev)
+    fused_weights = part("10b", fused_vs_reference, torch, dev)
+    part("10c", serve_reference, torch, card, workdir, config, state, dev)
+  part("10d", profile_layouts, torch, card, dev, state, fused_weights)
+
+
 def main() -> None:
   try:
     import torch
@@ -2471,6 +2824,8 @@ def main() -> None:
     timed("phase 8b", ddp_phase, torch, card, records)
     timed("phase 8c", check_nccl_world1, torch)
     timed("phase 9", modes_phase, torch, card, workdir, phase6)
+  timed("phase 10", reference_phase, torch, records, card, dev,
+        config.num_train_steps)
 
   print(json.dumps({"kernels": list(records.values())}))
   print(card)

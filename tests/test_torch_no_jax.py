@@ -7,7 +7,11 @@ shard) with the port's writer, and take one tiny CPU step through
 ``train.train`` on it, the host helper and the PNG decoder included, then
 a second step in a one-process gloo group, through the collectives of
 ``parallel/``.  And
-``chip_smoke.py`` refuses to run without a card."""
+``chip_smoke.py`` refuses to run without a card.  The reference-layout
+generator (``g_spectral_norm``) takes a step through ``main --mode=train``
+there too, then ``--mode=generate`` and ``--mode=export`` on its
+checkpoint, and `utils/reference_bridge.py` reads a flax-serialized
+checkpoint with ``msgpack`` blocked as well."""
 
 import json
 import os
@@ -108,7 +112,8 @@ def test_port_trains_without_jax(tmp_path):
                "engine.registry", "utils.tb_writer", "utils.metric_writer",
                "configs.coco_xmc_256", "utils.serving", "utils.pretrained",
                "export_serving", "serving_bench", "parallel.mesh",
-               "parallel.context", "parallel.collectives"):
+               "parallel.context", "parallel.collectives",
+               "utils.reference_bridge"):
     assert f"xmcgan_image_generation_tpu_torch.{name}" in result["modules"]
   lines = (tmp_path / "metrics.jsonl").read_text().splitlines()
   record = json.loads(lines[-1])   # the loss line, written after progress
@@ -123,3 +128,71 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
       text=True, timeout=300, env=_env(), cwd=tmp_path, check=False)
   assert proc.returncode != 0
   assert '"ok"' not in proc.stdout
+
+
+_REFERENCE_SCRIPT = textwrap.dedent("""
+    import json, sys
+    BLOCKED = %r
+    for name in BLOCKED:
+      sys.modules[name] = None   # any import of them raises ImportError
+    import torch
+    torch.set_num_threads(1)
+    from xmcgan_image_generation_tpu_torch import main
+    from xmcgan_image_generation_tpu_torch.utils import reference_bridge
+    for mode in ("train", "generate", "export"):
+      main.main(["--workdir", sys.argv[1], "--config=test", "--device=cpu",
+                 "--num_train_steps=1", "--data_source=synthetic",
+                 "--config.g_spectral_norm=True",
+                 "--config.fused_spatial_cond=False", f"--mode={mode}"])
+    raw = reference_bridge.load_reference_msgpack(sys.argv[2])
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in BLOCKED + ("jaxlib",)
+                    and sys.modules[m] is not None)
+    print(json.dumps({"loaded": loaded, "step": raw["step"],
+                      "kernel": raw["params"]["kernel"].tolist(),
+                      "dtype": str(raw["params"]["kernel"].dtype)}))
+""" % (_BLOCKED + ("msgpack",),))
+
+
+def test_reference_layout_trains_and_loads_without_jax(tmp_path):
+  import ast
+
+  import flax.serialization
+  import numpy as np
+  import torch
+
+  source = (ROOT / "xmcgan_image_generation_tpu_torch" / "utils" /
+            "reference_bridge.py").read_text()
+  imported = set()
+  for node in ast.walk(ast.parse(source)):
+    if isinstance(node, ast.Import):
+      imported |= {a.name.split(".")[0] for a in node.names}
+    elif isinstance(node, ast.ImportFrom):
+      imported.add((node.module or "").split(".")[0])
+  assert not imported & {"jax", "flax", "msgpack", "jaxlib"}, imported
+  blob = tmp_path / "ckpt-5"
+  blob.write_bytes(flax.serialization.msgpack_serialize(
+      {"step": 5, "params": {"kernel": np.arange(6, dtype=np.float32)
+                             .reshape(2, 3)}}))
+  proc = subprocess.run(
+      [sys.executable, "-c", _REFERENCE_SCRIPT, str(tmp_path / "w"),
+       str(blob)], capture_output=True, text=True, timeout=600, env=_env(),
+      cwd=tmp_path, check=False)
+  assert proc.returncode == 0, proc.stderr[-3000:]
+  result = json.loads(proc.stdout.strip().splitlines()[-1])
+  assert result["loaded"] == [] and result["step"] == 5
+  assert result["kernel"] == [[0, 1, 2], [3, 4, 5]]
+  assert result["dtype"] == "torch.float32"
+  lines = (tmp_path / "w" / "metrics.jsonl").read_text().splitlines()
+  assert json.loads(lines[-1])["step"] == 1
+  ckpt = torch.load(tmp_path / "w" / "checkpoints" / "checkpoint_1.pt",
+                    weights_only=False)
+  g_u0 = [k for k in ckpt["generator"] if k.endswith("u0")]
+  assert any(k.startswith("GenSpatialBlock_0.") for k in g_u0)
+  assert any((tmp_path / "w" / "samples").iterdir())
+  (artifact,) = (tmp_path / "w" / "serving").glob("*.pt2")
+  served = torch.export.load(str(artifact)).module()(
+      torch.zeros(2, 768), torch.zeros(2, 17, 768), torch.full((2, 1), 5.0),
+      torch.zeros(2, 8))
+  assert served.shape == (2, 32, 32, 3) and bool(torch.isfinite(
+      served).all())

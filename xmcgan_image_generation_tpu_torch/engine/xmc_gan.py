@@ -14,7 +14,8 @@ each graph freed before the next, so live activations are one
 microbatch's; it sums them in float32, divides by k and steps each Adam
 once (and the EMA once).  As in the JAX ``lax.scan``, mutable state
 threads in sequence: microbatch i+1 sees the ``u0`` and G batch
-statistics that microbatch i wrote, so ``u0`` advances k times an update.
+statistics that microbatch i wrote, so ``u0`` (D's, and with
+``g_spectral_norm`` G's in the joint update) advances k times an update.
 The contrastive pools, the ResNet-50 term and the batch statistics are
 each microbatch's own: a capacity knob, not a large-batch emulation.
 
@@ -41,9 +42,7 @@ from xmcgan_image_generation_tpu_torch.engine.state import TrainState
 from xmcgan_image_generation_tpu_torch.ops import contrastive as contrastive_ops
 from xmcgan_image_generation_tpu_torch.ops import losses
 from xmcgan_image_generation_tpu_torch.ops.images import image_to_float
-from xmcgan_image_generation_tpu_torch.ops.normalization import (
-    frozen_batch_stats,
-)
+from xmcgan_image_generation_tpu_torch.ops.normalization import frozen_state
 from xmcgan_image_generation_tpu_torch.parallel import collectives
 from xmcgan_image_generation_tpu_torch.utils import pretrained
 
@@ -204,7 +203,7 @@ def train_g_d(state: TrainState, batch: Batch, config,
 def _critic_grads(state: TrainState, batch: Batch):
   """``((d_grads,), {})`` of the critic update on one (micro)batch."""
   g_net, d_net = state.generator, state.discriminator
-  with torch.no_grad(), frozen_batch_stats(g_net):
+  with torch.no_grad(), frozen_state(g_net):
     fake_image = g_net(batch, _noise(batch, g_net.dtype))
   all_images = torch.cat([image_to_float(batch["image"]),
                           fake_image.float()])
@@ -218,8 +217,10 @@ def _critic_grads(state: TrainState, batch: Batch):
 def train_d(state: TrainState, batch: Batch, config) -> None:
   """Discriminator-only update (an extra critic step), in place.
 
-  G runs forward in train mode without writing its running statistics
-  (for every microbatch); D's spectral-norm state advances.
+  G runs forward in train mode without writing its state, neither its
+  running statistics nor (with ``g_spectral_norm``) its ``u0``, for every
+  microbatch, as the JAX critic step discards G's new collections; D's
+  spectral-norm state advances.
   """
   state.generator.train()
   state.discriminator.train()

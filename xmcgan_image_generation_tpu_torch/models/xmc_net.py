@@ -2,12 +2,18 @@
 in-graph contrastive heads (the JAX package's ``models/xmc_net.py``).
 
 The public calls take and return NHWC images; the conv stacks run NCHW.
-Parameters are float32 and compute runs in the configured dtype.  The
-ported generator path is the default one: fused spatial modulation
-(``fused_spatial_cond``) without spectral norm in G.  BatchNorm statistics
-and contrastive pools are over the global batch (with a process group,
-every process's rows: `parallel`), or over contiguous groups of it with
-``batch_norm_group_size`` and ``contrastive_group_size`` > 0.
+Parameters are float32 and compute runs in the configured dtype.  G has
+the JAX package's two layouts, chosen by its rule ``fused_spatial_cond
+and not g_spectral_norm``: the fused one (the default: the spatial
+modulation at the 16 x 16 context's resolution, `GenSpatialBlockFused`)
+and the reference one (the concatenated, per-block upsampled
+conditioning map, `GenSpatialBlock` and `LocalConditionalBatchNorm`),
+which every G with ``g_spectral_norm`` takes; then every G conv and
+dense is spectrally normalized and G holds ``u0`` buffers.  BatchNorm
+statistics and contrastive pools are over the global batch (with a
+process group, every process's rows: `parallel`), or over contiguous
+groups of it with ``batch_norm_group_size`` and ``contrastive_group_size``
+> 0.
 
 ``config.remat`` recomputes a block's forward in the backward instead of
 keeping its activations (`torch.utils.checkpoint`, non-reentrant), for
@@ -34,8 +40,10 @@ from xmcgan_image_generation_tpu_torch.ops import attention as attn_ops
 from xmcgan_image_generation_tpu_torch.ops import contrastive as contrastive_ops
 from xmcgan_image_generation_tpu_torch.ops.normalization import (
     FusedSpatialModulation,
+    LocalConditionalBatchNorm,
     frozen_batch_stats,
 )
+from xmcgan_image_generation_tpu_torch.ops.pooling import upsample
 from xmcgan_image_generation_tpu_torch.ops.spectral_norm import (
     Conv,
     Dense,
@@ -193,66 +201,91 @@ class Generator(nn.Module):
   ``forward(cond, z)``: ``cond`` holds ``sentence_embedding [B, 768]``,
   ``embedding [B, L, 768]`` and ``max_len [B, 1]``; ``z`` is ``[B, z_dim]``.
   Returns images in ``[0, 1]``, ``[B, S, S, 3]``.  Train mode uses batch
-  statistics (see `ops.normalization.frozen_batch_stats`).
+  statistics and advances the spectral layers' ``u0`` (see
+  `ops.normalization.frozen_state`).  ``fused`` says which layout it
+  has.  Sub-modules carry flax's names: with
+  ``g_spectral_norm`` ``SpectralDense_0/1`` and ``SpectralConv_0/1`` for
+  ``Dense_0/1`` and ``Conv_0/1``.
   """
 
   def __init__(self, config, *, device=None,
                generator: Optional[torch.Generator] = None):
     super().__init__()
     _check_supported(config)
-    if config.g_spectral_norm or not config.get("fused_spatial_cond", True):
-      raise NotImplementedError(
-          "only the fused-modulation generator (g_spectral_norm=False, "
-          "fused_spatial_cond=True) is ported")
     self.config = config
     self.dtype = compute_dtype(config)
+    spectral = bool(config.g_spectral_norm)
+    # The fused modulation is the reference layout's function only with
+    # plain 1x1 convs: a spectral G takes the reference layout.
+    self.fused = bool(config.get("fused_spatial_cond", True)
+                      and not spectral)
     kw = dict(dtype=self.dtype, device=device, generator=generator)
+    layer_kw = dict(kw, spectral=spectral)
     norm_kw = dict(kw, norm_group_size=int(
         config.get("batch_norm_group_size", -1)))
+    block_kw = dict(norm_kw,
+                    scale_fuse=bool(config.get("scale_fused_convs", False)))
     gf = config.gf_dim
     z_dim = config.z_dim
     channels = _GEN_CHANNELS[config.image_size]
-    fuse = bool(config.get("scale_fused_convs", False))
     cond = 2 * z_dim  # projected sentence concat z
+    dense = "SpectralDense" if spectral else "Dense"
+    conv = blocks.conv_prefix(spectral)
+    self._names = (f"{dense}_0", f"{dense}_1", f"{conv}_0", f"{conv}_1")
 
-    self.Dense_0 = Dense(BERT_DIM, z_dim, **kw)
-    self.Dense_1 = Dense(z_dim, gf * 16 * 4 * 4, **kw)
+    self.add_module(self._names[0], Dense(BERT_DIM, z_dim, **layer_kw))
+    self.add_module(self._names[1],
+                    Dense(z_dim, gf * 16 * 4 * 4, **layer_kw))
     in_ch = gf * 16
     # Block i's output side is 4 * 2 ** (i + 1), as in the JAX package.
     for i in range(2):
       self.add_module(f"GenBlock_{i}", _maybe_remat(config, blocks.GenBlock(
-          in_ch, gf * channels[i], cond, scale_fuse=fuse, **norm_kw),
+          in_ch, gf * channels[i], cond, spectral=spectral, **block_kw),
           4 * 2 ** (i + 1)))
       in_ch = gf * channels[i]
-    self.Conv_0 = Conv(in_ch, BERT_DIM, (1, 1), **kw)
-    factor = 1
+    self.add_module(self._names[2],
+                    Conv(in_ch, BERT_DIM, (1, 1), **layer_kw))
     self.spatial_blocks = []
+    factor = 1
     for i in range(2, len(channels)):
-      block = _maybe_remat(config, blocks.GenSpatialBlockFused(
-          in_ch, gf * channels[i], BERT_DIM, cond, factor, scale_fuse=fuse,
-          **norm_kw), 4 * 2 ** (i + 1))
-      self.add_module(f"GenSpatialBlockFused_{i - 2}", block)
+      if self.fused:
+        name = f"GenSpatialBlockFused_{i - 2}"
+        block = blocks.GenSpatialBlockFused(
+            in_ch, gf * channels[i], BERT_DIM, cond, factor, **block_kw)
+        factor *= 2
+      else:
+        name = f"GenSpatialBlock_{i - 2}"
+        block = blocks.GenSpatialBlock(in_ch, gf * channels[i],
+                                       BERT_DIM + cond, spectral=spectral,
+                                       **block_kw)
+      self.add_module(name, _maybe_remat(config, block, 4 * 2 ** (i + 1)))
       self.spatial_blocks.append(block)
       in_ch = gf * channels[i]
-      factor *= 2
-    self.FusedSpatialModulation_0 = FusedSpatialModulation(
-        in_ch, BERT_DIM, cond, factor,
-        group_size=norm_kw["norm_group_size"], **kw)
-    self.Conv_1 = Conv(in_ch, 3, (3, 3), **kw)
+    if self.fused:
+      self.FusedSpatialModulation_0 = FusedSpatialModulation(
+          in_ch, BERT_DIM, cond, factor,
+          group_size=norm_kw["norm_group_size"], **kw)
+    else:
+      self.LocalConditionalBatchNorm_0 = LocalConditionalBatchNorm(
+          in_ch, BERT_DIM + cond, group_size=norm_kw["norm_group_size"],
+          **layer_kw)
+    self.add_module(self._names[3], Conv(in_ch, 3, (3, 3), **layer_kw))
 
   def forward(self, cond: Dict[str, Tensor], z: Tensor) -> Tensor:
     config = self.config
+    dense_sentence, dense_seed, region_conv, out_conv = (
+        getattr(self, name) for name in self._names)
     sentence = cond["sentence_embedding"]
     word_feat = cond["embedding"]
     batch, total_len, embedding_dim = word_feat.shape
     z = z.to(self.dtype)
-    global_cond = torch.cat([self.Dense_0(sentence.to(self.dtype)), z], -1)
-    x = self.Dense_1(z).reshape(batch, 4, 4, -1).permute(0, 3, 1, 2)
+    global_cond = torch.cat([dense_sentence(sentence.to(self.dtype)), z], -1)
+    x = dense_seed(z).reshape(batch, 4, 4, -1).permute(0, 3, 1, 2)
     x = _run_block(self.GenBlock_0, x, global_cond)
     x = _run_block(self.GenBlock_1, x, global_cond)
 
     # Word-region attention at 16x16.
-    region = self.Conv_0(x)
+    region = region_conv(x)
     side = region.shape[2]
     region = region.permute(0, 2, 3, 1).reshape(batch, side * side,
                                                  embedding_dim)
@@ -262,10 +295,21 @@ class Generator(nn.Module):
     region_context = region_context.reshape(
         batch, side, side, embedding_dim).permute(0, 3, 1, 2).to(self.dtype)
 
-    for block in self.spatial_blocks:
-      x = _run_block(block, x, region_context, global_cond)
-    x = self.FusedSpatialModulation_0(x, region_context, global_cond)
-    x = torch.tanh(self.Conv_1(F.relu(x)))
+    if self.fused:
+      for block in self.spatial_blocks:
+        x = _run_block(block, x, region_context, global_cond)
+      x = self.FusedSpatialModulation_0(x, region_context, global_cond)
+    else:
+      # The reference layout: concat(region context, tiled global
+      # conditioning), upsampled once a block.
+      spatial_cond = torch.cat([region_context, global_cond[:, :, None, None]
+                                .expand(-1, -1, side, side)], dim=1)
+      for block in self.spatial_blocks:
+        spatial_cond_up = upsample(spatial_cond)
+        x = _run_block(block, x, spatial_cond, spatial_cond_up)
+        spatial_cond = spatial_cond_up
+      x = self.LocalConditionalBatchNorm_0(x, spatial_cond)
+    x = torch.tanh(out_conv(F.relu(x)))
     return ((x + 1.0) / 2.0).permute(0, 2, 3, 1)
 
 

@@ -29,7 +29,11 @@ import torch
 from torch import nn
 
 from xmcgan_image_generation_tpu_torch.ops.pooling import upsample
-from xmcgan_image_generation_tpu_torch.ops.spectral_norm import Conv, Dense
+from xmcgan_image_generation_tpu_torch.ops.spectral_norm import (
+    Conv,
+    Dense,
+    frozen_u0,
+)
 from xmcgan_image_generation_tpu_torch.parallel import collectives
 from xmcgan_image_generation_tpu_torch.parallel import context
 
@@ -174,26 +178,78 @@ def frozen_batch_stats(module: nn.Module) -> Iterator[None]:
       m.update_stats = flag
 
 
-class ConditionalBatchNorm(nn.Module):
-  """BatchNorm modulated per sample: ``x (gamma + 1) + beta``, with gamma
-  and beta linear in the conditioning vector (``Dense_0``, ``Dense_1``)."""
+@contextlib.contextmanager
+def frozen_state(module: nn.Module) -> Iterator[None]:
+  """Runs ``module`` without writing any of its state: neither the
+  BatchNorms' running averages nor the spectral layers' ``u0``.
 
-  def __init__(self, features: int, cond_features: int, *, dtype,
-               device=None, generator: Optional[torch.Generator] = None,
-               group_size: int = -1):
-    super().__init__()
-    kw = dict(dtype=dtype, device=device, generator=generator)
-    self.Dense_0 = Dense(cond_features, features, **kw)
-    self.Dense_1 = Dense(cond_features, features, **kw)
+  The critic step runs G in train mode (batch statistics, the spectral
+  kernels normalized with the stored ``u0``) and keeps G's state as it
+  was, as the JAX critic step throws G's new collections away.
+  """
+  with frozen_batch_stats(module), frozen_u0(module):
+    yield
+
+
+class _Modulated(nn.Module):
+  """BatchNorm without scale or bias, modulated as ``x (gamma + 1) +
+  beta``; gamma and beta come from the two layers ``<prefix>_0`` and
+  ``<prefix>_1``."""
+
+  def _add_layers(self, prefix: str, features: int, group_size: int,
+                  make_layer, dtype, device) -> None:
+    self.layer_names = (f"{prefix}_0", f"{prefix}_1")
+    for name in self.layer_names:
+      self.add_module(name, make_layer())
     self.norm_name = norm_name(group_size)
     self.add_module(self.norm_name, make_batch_norm(
         features, group_size, dtype=dtype, device=device))
 
-  def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-    gamma = self.Dense_0(emb)[:, :, None, None]
-    beta = self.Dense_1(emb)[:, :, None, None]
+  def _modulate(self, x: torch.Tensor, emb: torch.Tensor,
+                expand) -> torch.Tensor:
+    gamma, beta = (expand(getattr(self, name)(emb))
+                   for name in self.layer_names)
     x = getattr(self, self.norm_name)(x)
     return x * (gamma + 1.0) + beta
+
+
+class ConditionalBatchNorm(_Modulated):
+  """BatchNorm modulated per sample: gamma and beta are linear in the
+  conditioning vector (``Dense_0``, ``Dense_1``; ``SpectralDense_*``
+  with ``spectral``)."""
+
+  def __init__(self, features: int, cond_features: int, *, dtype,
+               device=None, generator: Optional[torch.Generator] = None,
+               group_size: int = -1, spectral: bool = False):
+    super().__init__()
+    self._add_layers(
+        "SpectralDense" if spectral else "Dense", features, group_size,
+        lambda: Dense(cond_features, features, spectral=spectral,
+                      dtype=dtype, device=device, generator=generator),
+        dtype, device)
+
+  def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    return self._modulate(x, emb, lambda v: v[:, :, None, None])
+
+
+class LocalConditionalBatchNorm(_Modulated):
+  """BatchNorm with spatial modulation: gamma and beta are 1x1 convs (with
+  bias) of a conditioning map at ``x``'s resolution (``Conv_0``,
+  ``Conv_1``; ``SpectralConv_*`` with ``spectral``): each pixel gets its
+  own affine modulation."""
+
+  def __init__(self, features: int, cond_features: int, *, dtype,
+               device=None, generator: Optional[torch.Generator] = None,
+               group_size: int = -1, spectral: bool = False):
+    super().__init__()
+    self._add_layers(
+        "SpectralConv" if spectral else "Conv", features, group_size,
+        lambda: Conv(cond_features, features, (1, 1), spectral=spectral,
+                     dtype=dtype, device=device, generator=generator),
+        dtype, device)
+
+  def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    return self._modulate(x, cond, lambda v: v)
 
 
 class FusedSpatialModulation(nn.Module):

@@ -10,7 +10,10 @@ stand beside: one `Dense` and one `Conv`, each with a ``spectral`` switch.
   kernel flattened to ``[fan_in, features]`` (HWIO order for a conv), with
   the additive eps 1e-10 inside the l2 and in ``sigma + eps``.  ``u`` and
   ``v`` carry no gradient, sigma does.  The persisted ``u0`` buffer
-  ``[1, features]`` advances only in train mode.
+  ``[1, features]`` advances only in train mode, and not inside
+  `frozen_u0` (the critic step runs G in train mode and keeps its state).
+  The iteration reads the kernel in float32, whatever it is stored in: a
+  bfloat16 kernel's sigma is that of its rounded values, as in JAX.
 * Kernels are ``[out, in]`` (Dense) and OIHW (conv); `utils.bridge` maps
   them to the flax layouts.
 * Under recompute (``models.xmc_net``'s remat) the normalized kernels are
@@ -48,9 +51,12 @@ def power_iteration_normalize(
     return x * torch.rsqrt((x * x).sum() + eps)
 
   kernel_2d = kernel_2d.float()
-  with torch.no_grad():
-    v0 = _l2(u0.float() @ kernel_2d.t())
-    u1 = _l2(v0 @ kernel_2d)
+  # ``u`` and ``v`` carry no gradient (JAX's stop_gradient).  Detaching
+  # the kernel, rather than a no_grad region, keeps the grad mode as it
+  # is: ``torch.export`` traces a grad-mode switch as a submodule each.
+  frozen = kernel_2d.detach()
+  v0 = _l2(u0.float() @ frozen.t())
+  u1 = _l2(v0 @ frozen)
   sigma = ((v0 @ kernel_2d) @ u1.t())[0, 0]
   return sigma + eps, u1
 
@@ -101,26 +107,34 @@ class _Layer(nn.Module):
     self.bias = (_init_tensor((features,), None, device) if use_bias
                  else None)
     self.kernel_override = None   # see `precomputed_kernels`
+    self.update_u0 = True         # see `frozen_u0`
     if spectral:
       u0 = torch.randn((1, features), generator=generator) * 1e-2
       self.register_buffer("u0", u0.to(device))
 
-  def _kernel_2d(self) -> torch.Tensor:
+  def _kernel_2d(self, kernel: torch.Tensor) -> torch.Tensor:
+    """``kernel`` (this layer's layout) as ``[fan_in, features]``."""
     raise NotImplementedError
 
-  def normalized_kernel(self) -> torch.Tensor:
-    """The kernel in the compute dtype, spectrally normalized if asked;
-    advances ``u0`` in train mode.  Inside `precomputed_kernels`, the
-    kernel handed in."""
-    if self.kernel_override is not None:
-      return self.kernel_override
+  def normalize(self, kernel: torch.Tensor) -> torch.Tensor:
+    """``kernel`` (this layer's shape, any float dtype) in the compute
+    dtype, spectrally normalized if the layer is; advances ``u0`` in
+    train mode outside `frozen_u0`."""
     if not self.spectral:
-      return self.kernel.to(self.dtype)
-    sigma, new_u0 = power_iteration_normalize(self._kernel_2d(), self.u0)
-    if self.training:
+      return kernel.to(self.dtype)
+    sigma, new_u0 = power_iteration_normalize(self._kernel_2d(kernel),
+                                              self.u0)
+    if self.training and self.update_u0:
       with torch.no_grad():
         self.u0.copy_(new_u0)
-    return (self.kernel / sigma).to(self.dtype)
+    return (kernel.float() / sigma).to(self.dtype)
+
+  def normalized_kernel(self) -> torch.Tensor:
+    """`normalize` of the layer's own kernel; inside
+    `precomputed_kernels`, the kernel handed in."""
+    if self.kernel_override is not None:
+      return self.kernel_override
+    return self.normalize(self.kernel)
 
   def _add_bias(self, y: torch.Tensor, channel_dim: int) -> torch.Tensor:
     if self.bias is None:
@@ -149,8 +163,8 @@ class Dense(_Layer):
                      spectral=spectral, init=init, dtype=dtype,
                      device=device, generator=generator)
 
-  def _kernel_2d(self):
-    return self.kernel.t()
+  def _kernel_2d(self, kernel):
+    return kernel.t()
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     y = F.linear(x.to(self.dtype), self.normalized_kernel())
@@ -169,6 +183,21 @@ def precomputed_kernels(layers: Sequence[_Layer],
   finally:
     for layer in layers:
       layer.kernel_override = None
+
+
+@contextlib.contextmanager
+def frozen_u0(module: nn.Module) -> Iterator[None]:
+  """Runs ``module``'s spectral layers without writing their ``u0``: they
+  normalize with the stored ``u0`` (train mode or not)."""
+  layers = [m for m in module.modules() if isinstance(m, _Layer)]
+  saved = [m.update_u0 for m in layers]
+  for m in layers:
+    m.update_u0 = False
+  try:
+    yield
+  finally:
+    for m, flag in zip(layers, saved):
+      m.update_u0 = flag
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -217,9 +246,9 @@ class Conv(_Layer):
     self.padding = padding
     self.scale_op = scale_op
 
-  def _kernel_2d(self):
+  def _kernel_2d(self, kernel):
     # OIHW -> HWIO flattened to [kh*kw*cin, cout], the JAX order.
-    return self.kernel.permute(2, 3, 1, 0).reshape(-1, self.kernel.shape[0])
+    return kernel.permute(2, 3, 1, 0).reshape(-1, kernel.shape[0])
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     w = self.normalized_kernel()

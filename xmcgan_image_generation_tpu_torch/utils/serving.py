@@ -40,6 +40,7 @@ from xmcgan_image_generation_tpu_torch.models import xmc_net
 from xmcgan_image_generation_tpu_torch.ops.spectral_norm import (
     Conv,
     Dense,
+    power_iteration_normalize,
     precomputed_kernels,
 )
 from xmcgan_image_generation_tpu_torch.utils import fileio
@@ -125,8 +126,15 @@ class ServingGenerator(nn.Module):
   running averages stay float32.  With ``quantize="int8"`` the kernels
   are int8 buffers with float32 scales (`quantize_params_int8`),
   dequantized to the compute dtype inside `forward`, so an exported
-  program carries the int8 values.  Inputs are cast to the compute dtype;
-  the output is float32 NHWC in [0, 1].
+  program carries the int8 values.  A spectral layer (``g_spectral_norm``)
+  normalizes the kernel it serves, the bfloat16 or the dequantized one,
+  by its power iteration in float32 from its stored ``u0``: JAX's order
+  and values.  In eval mode ``u0`` is a constant, so sigma is computed
+  once, here: the normalized kernel is stored in place of the kernel
+  (with int8, sigma beside the int8 values, and the dequantized kernel is
+  divided by it in `forward`), and the graph holds no power iteration.
+  Inputs are cast to the compute dtype; the output is float32 NHWC in
+  [0, 1].
   """
 
   def __init__(self, config, generator: nn.Module,
@@ -166,7 +174,18 @@ class ServingGenerator(nn.Module):
         layer.kernel = None
         layer.register_buffer("kernel_int8", q)
         layer.register_buffer("kernel_scale", scale)
+        layer.register_buffer("kernel_sigma", None)
+        if layer.spectral:
+          layer.kernel_sigma, _ = power_iteration_normalize(
+              layer._kernel_2d(dequantize(q, scale, self.dtype)), layer.u0)
         self.quantized.append(layer)
+    for layer in g.modules():
+      if isinstance(layer, (Dense, Conv)) and layer.spectral:
+        if layer.kernel is not None:
+          layer.kernel = nn.Parameter(layer.normalize(layer.kernel),
+                                      requires_grad=False)
+        layer.spectral = False
+        del layer.u0
     self.generator = g
 
   def forward(self, sentence_embedding: Tensor, embedding: Tensor,
@@ -174,8 +193,12 @@ class ServingGenerator(nn.Module):
     dtype = self.dtype
     cond = {"sentence_embedding": sentence_embedding.to(dtype),
             "embedding": embedding.to(dtype), "max_len": max_len.to(dtype)}
-    kernels = [dequantize(layer.kernel_int8, layer.kernel_scale, dtype)
-               for layer in self.quantized]
+    kernels = []
+    for layer in self.quantized:
+      kernel = dequantize(layer.kernel_int8, layer.kernel_scale, dtype)
+      if layer.kernel_sigma is not None:
+        kernel = (kernel.float() / layer.kernel_sigma).to(dtype)
+      kernels.append(kernel)
     with precomputed_kernels(self.quantized, kernels):
       images = self.generator(cond, z.to(dtype))
     return images.float()
@@ -282,20 +305,29 @@ def export_from_workdir(config, workdir: str, *, step: Optional[int] = None,
     rules.shutdown()
 
 
+def _restore_generator(config, ckpt, step: int, device: torch.device
+                       ) -> Tuple[nn.Module, Dict[str, Tensor]]:
+  """G (parameters and buffers) and its EMA from the checkpoint of
+  ``step``.  The file is memory-mapped and only G's tensors are read: the
+  export builds neither D nor the optimizers."""
+  payload = torch.load(ckpt.path(step), map_location="cpu",
+                       weights_only=True, mmap=True)
+  generator = xmc_net.Generator(config, device="meta")
+  generator.load_state_dict({k: v.to(device) for k, v in
+                             payload["generator"].items()}, assign=True)
+  return generator, {k: v.to(device)
+                     for k, v in payload["ema_params"].items()}
+
+
 def _write_artifacts(config, ckpt, step: int, names: List[str],
                      bases: List[str], device: torch.device,
                      batch_size: Optional[int],
                      quantize: Optional[str]) -> None:
-  from xmcgan_image_generation_tpu_torch.engine.state import (
-      create_train_state,
-  )
-
-  state = ckpt.restore(step, create_train_state(config, device,
-                                                seed=config.seed))
+  generator, ema_params = _restore_generator(config, ckpt, step, device)
   fileio.makedirs(fileio.dirname(bases[0]))
   for name, base in zip(names, bases):
-    params = state.ema_params if name == "ema" else None
-    exported = export_generator(state.generator, params, config,
+    params = ema_params if name == "ema" else None
+    exported = export_generator(generator, params, config,
                                 batch_size=batch_size, quantize=quantize,
                                 device=device)
     torch.export.save(exported, base + ".pt2")
