@@ -121,7 +121,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    ``ServingGenerator``; (d) profiles an outer step of (a)'s state and
    one of a fused state (b's fused G, a's D) on one super-batch held on
    the card and prints their device time by group;
-11. prints the kernel records as one JSON line, the card line, and last
+11. the offline caption stage, which launches none of kernels A-D: (a)
+   a seeded float32 BERT-base (``data/bert_embed.py``) embeds 5,120
+   fabricated captions (20 batches of 256 x 17, a fabricated 30,522-line
+   vocabulary) through ``CaptionEmbedder``, prints ms a batch (CUDA
+   events, median) against the batch's operations over the float32 rate,
+   captions/s and peak memory, and holds one batch with all-zero padding
+   rows against the same module on the CPU (1e-4; padded rows finite);
+   (b) ``preprocess_coco.write_split`` of 64 fabricated 480 x 640 PNGs at
+   store size 0 and 128 with that BERT, printing host ms an image to read
+   and encode, tokenize, embed and write, then the port's ``run_e2e
+   --smoke`` on the card (preprocess, 2 training steps, the evaluation
+   service) and its ``scores.csv`` row;
+12. prints the kernel records as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.  Any failed phase exits non-zero before
@@ -951,48 +963,13 @@ def step_summary(lines, images_per_step, card):
         f"({images_per_step} images per outer step)", flush=True)
 
 
-def encode_png_filtered(image):
-  """An 8-bit RGB PNG whose rows use the filter types 0-4 in turn (a
-  helper of this script, not of the package)."""
-  import struct
-  import zlib
-
-  import numpy as np
-
-  def paeth(a, b, c):
-    p = a + b - c
-    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-
-  h, w, ch = image.shape
-  x = image.reshape(h, w * ch).astype(np.int32)
-  rows = []
-  for y in range(h):
-    kind = y % 5
-    cur = x[y]
-    up = x[y - 1] if y else np.zeros_like(cur)
-    left = np.concatenate([np.zeros(ch, np.int32), cur[:-ch]])
-    upleft = np.concatenate([np.zeros(ch, np.int32), up[:-ch]])
-    pred = (0, left, up, (left + up) >> 1, paeth(left, up, upleft))[kind]
-    rows.append(bytes([kind]) + ((cur - pred) & 255).astype(np.uint8)
-                .tobytes())
-
-  def chunk(tag, data):
-    return (struct.pack(">I", len(data)) + tag + data
-            + struct.pack(">I", zlib.crc32(tag + data)))
-
-  return (b"\x89PNG\r\n\x1a\n"
-          + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-          + chunk(b"IDAT", zlib.compress(b"".join(rows)))
-          + chunk(b"IEND", b""))
-
-
 def fabricate_image(seed):
   """One full-resolution image (smooth low-frequency content plus noise,
   as natural images) and its PNGs at full size and pre-resized to 128 px,
   as ``tools/preprocess_coco.py --store_size 128`` stores it."""
   import numpy as np
 
+  from xmcgan_image_generation_tpu_torch.data import png
   from xmcgan_image_generation_tpu_torch.data import resize
 
   rng = np.random.default_rng(seed)
@@ -1001,8 +978,10 @@ def fabricate_image(seed):
   image = resize.resize_uint8(small, h, w).astype(np.int16)
   image = np.clip(image + np.rint(rng.normal(0, 2, image.shape)), 0,
                   255).astype(np.uint8)
-  return (encode_png_filtered(image),
-          encode_png_filtered(resize.resize_uint8(image, 128, 128)))
+  # The rows take the five filter types in turn, so that the decoder's
+  # check (phase 4b) meets each.
+  return (png.encode(image, filters=range(5)),
+          png.encode(resize.resize_uint8(image, 128, 128), filters=range(5)))
 
 
 def write_record_layouts(root):
@@ -2717,6 +2696,288 @@ def reference_phase(torch, records, card, dev, flagship_steps):
   part("10d", profile_layouts, torch, card, dev, state, fused_weights)
 
 
+BERT_CAPTIONS = 5120      # phase 11a: 20 batches of 256
+BERT_BATCH = 256
+BERT_ATOL = 1e-4          # card against CPU, float32 (TF32 off)
+BERT_PADDED_ROWS = 16     # all-zero rows in the compared batch
+BERT_PROFILED = 3         # batches in phase 11a's device-time breakdown
+CAPTION_IMAGES = 64       # phase 11b's fabricated 480 x 640 PNGs
+
+
+def fabricate_vocab(path, rng):
+  """A 30,522-line ``vocab.txt`` (BERT-base's size): the special tokens,
+  then whole words and ``##`` pieces of random letters.  Returns the
+  whole words."""
+  letters = list("abcdefghijklmnopqrstuvwxyz")
+  tokens, seen = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"], set()
+  while len(tokens) < 30522:
+    word = "".join(rng.choice(letters, size=int(rng.integers(2, 9))))
+    token = "##" + word if len(tokens) % 3 == 0 else word
+    if token not in seen:
+      seen.add(token)
+      tokens.append(token)
+  with open(path, "w") as f:
+    f.write("\n".join(tokens) + "\n")
+  return [t for t in tokens[5:] if not t.startswith("##")]
+
+
+def fabricate_captions(words, n, rng):
+  """``n`` captions of 6-15 words, some punctuated and some of two words
+  run together (so that WordPiece splits them)."""
+  out = []
+  for _ in range(n):
+    chosen = list(rng.choice(words, size=int(rng.integers(6, 16))))
+    chosen[0] = chosen[0].capitalize()
+    chosen[-1] += "."
+    if rng.random() < 0.5:
+      chosen[1] = chosen[1] + chosen[2]
+    out.append(" ".join(chosen))
+  return out
+
+
+def bert_flops(config, rows, length):
+  """Operations of a `BertModel` forward over ``rows`` x ``length`` tokens:
+  each layer's products (Q, K, V, O: 4 H^2; FFN: 2 H I) and attention's
+  two (2 L H), two operations a multiply-add."""
+  h, i = config.hidden_size, config.intermediate_size
+  per_token = 2 * (4 * h * h + 2 * h * i + 2 * length * h)
+  return rows * length * config.num_hidden_layers * per_token
+
+
+def bert_bytes(config, rows, length):
+  """Bytes a `BertModel` forward must move: its float32 weights read once
+  (the pooler's excluded), ids and mask read, the output written."""
+  h, i = config.hidden_size, config.intermediate_size
+  layer = 4 * h * h + 2 * h * i + 4 * h + i + h + 4 * h
+  weights = ((config.vocab_size + config.max_position_embeddings
+              + config.type_vocab_size) * h + 2 * h
+             + config.num_hidden_layers * layer)
+  return 4 * weights + 2 * 8 * rows * length + 4 * rows * length * h
+
+
+def bert_device_time(torch, embed, ids, mask):
+  """Device ms a batch by group over ``BERT_PROFILED`` batches (CUDA
+  activity alone), with cuBLAS's products apart."""
+  from xmcgan_image_generation_tpu_torch import profile_step
+
+  ids, mask = ids.cuda(), mask.cuda()
+  embed(ids, mask)
+  torch.cuda.synchronize()
+  with torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    for _ in range(BERT_PROFILED):
+      embed(ids, mask)
+    torch.cuda.synchronize()
+  groups, kernels = {}, 0
+  for evt in prof.key_averages():
+    if evt.device_type == torch.autograd.DeviceType.CUDA and (
+        evt.self_device_time_total > 0):
+      group = ("matmul (cuBLAS)" if "gemm" in evt.key.lower()
+               else profile_step._group(evt.key))
+      groups[group] = (groups.get(group, 0.0)
+                       + evt.self_device_time_total / 1e3 / BERT_PROFILED)
+      kernels += evt.count
+  total = sum(groups.values())
+  if total <= 0:
+    fail("phase 11a: the profiler saw no device time")
+  print(f"  device time a batch ({BERT_PROFILED} profiled, CUDA activity "
+        f"alone): {total:.3f} ms in {kernels / BERT_PROFILED:.0f} kernels; "
+        + ", ".join(f"{g} {ms:.3f}" for g, ms in sorted(
+            groups.items(), key=lambda kv: -kv[1])), flush=True)
+
+
+def caption_embedding(torch, card, dev, root):
+  """Phase 11a: a seeded BERT-base embeds fabricated captions on the card
+  through `CaptionEmbedder`; returns the tokenizer, the embed function
+  and the caption words."""
+  import numpy as np
+
+  from xmcgan_image_generation_tpu_torch.data import bert_embed
+  from xmcgan_image_generation_tpu_torch.data import tokenizer
+
+  rng = np.random.default_rng(11)
+  vocab = os.path.join(root, "vocab.txt")
+  words = fabricate_vocab(vocab, rng)
+  captions = fabricate_captions(words, BERT_CAPTIONS, rng)
+  tok = tokenizer.BertTokenizer(vocab)
+  t0 = time.perf_counter()
+  embed = bert_embed.build_bert(None, dev)
+  torch.cuda.synchronize()
+  built = time.perf_counter() - t0
+  config = bert_embed.BertConfig()
+  events = []
+
+  def timed_embed(ids, mask):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = embed(ids, mask)
+    end.record()
+    events.append((start, end))
+    return out
+
+  embedder = bert_embed.CaptionEmbedder(tok, timed_embed, 17, BERT_BATCH)
+  embedder(captions[:BERT_BATCH])   # warm-up: cuBLAS's handles
+  torch.cuda.synchronize()
+  events.clear()
+  embedder.seconds = {"tokenize": 0.0, "embed": 0.0}
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  embeddings, lengths = embedder(captions)
+  wall = time.perf_counter() - t0
+  peak = torch.cuda.max_memory_allocated()
+  batch_ms = sorted(s.elapsed_time(e) for s, e in events)
+  median = batch_ms[len(batch_ms) // 2]
+  flops = bert_flops(config, BERT_BATCH, 17)
+  nbytes = bert_bytes(config, BERT_BATCH, 17)
+  t_ops = flops / PEAK_OPS_PER_S["float32"] * 1e3
+  t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+  bound_ms = max(t_ops, t_bytes)
+  print(f"  BERT-base (12 layers, hidden 768, 12 heads, FFN 3072, seeded "
+        f"random weights), float32, TF32 off: built and moved to the card "
+        f"in {built:.2f} s", flush=True)
+  print(f"  {len(captions)} captions in {len(events)} batches of "
+        f"{BERT_BATCH} x 17 through CaptionEmbedder: {wall:.3f} s, "
+        f"{len(captions) / wall:.1f} captions/s (tokenize "
+        f"{embedder.seconds['tokenize']:.3f} s, embed to the host "
+        f"{embedder.seconds['embed']:.3f} s); ms a batch on the card (CUDA "
+        f"events around the forward): median {median:.3f}, min "
+        f"{batch_ms[0]:.3f}, max {batch_ms[-1]:.3f}; bound "
+        f"{bound_ms:.3f} ms, by "
+        f"{'operations' if t_ops >= t_bytes else 'bytes'} "
+        f"({flops / 1e12:.4f} TFLOP at float32's "
+        f"{PEAK_OPS_PER_S['float32'] / 1e12:.0f} TFLOP/s: {t_ops:.3f} ms; "
+        f"{nbytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
+        f"{t_bytes:.3f} ms), {bound_ms / median * 100:.1f} % of it; peak "
+        f"device memory "
+        f"{peak / 2**30:.3f} GiB ({card})", flush=True)
+  rows = [tok.encode(c, 17) for c in captions[:BERT_BATCH]]
+  ids = torch.tensor([r for r, _ in rows], dtype=torch.int32)
+  lens = torch.tensor([n for _, n in rows])
+  mask = (torch.arange(17)[None] < lens[:, None]).to(torch.int32)
+  bert_device_time(torch, embed, ids, mask)
+  if embeddings.shape != (len(captions), 17, 768) or not np.isfinite(
+      embeddings).all():
+    fail(f"phase 11a: embeddings {embeddings.shape}, or not finite")
+  if lengths.min() < 2 or lengths.max() > 17:
+    fail(f"phase 11a: caption lengths {lengths.min()}..{lengths.max()}")
+  # The first batch as CaptionEmbedder pads its last chunk, on the card
+  # and on the CPU (the same seeded weights).
+  ids[-BERT_PADDED_ROWS:] = 0
+  mask[-BERT_PADDED_ROWS:] = 0
+  on_card = embed(ids, mask).cpu()
+  t0 = time.perf_counter()
+  on_cpu = bert_embed.build_bert(None, "cpu")(ids, mask)
+  cpu_s = time.perf_counter() - t0
+  err = (on_card - on_cpu).abs().max().item()
+  padded_finite = bool(torch.isfinite(on_card[-BERT_PADDED_ROWS:]).all()
+                       and torch.isfinite(on_cpu[-BERT_PADDED_ROWS:]).all())
+  print(f"  one batch of {BERT_BATCH} ({BERT_PADDED_ROWS} of them all-zero "
+        f"padding rows) on the card against the CPU ({cpu_s:.2f} s there): "
+        f"max |card - CPU| {err:.3e} (tolerance {BERT_ATOL:g}); padded rows "
+        f"finite: {padded_finite}", flush=True)
+  if not err <= BERT_ATOL:
+    fail(f"phase 11a: card and CPU differ by {err}")
+  if not padded_finite:
+    fail("phase 11a: the all-zero padding rows are not finite")
+  return tok, embed, words
+
+
+def caption_records(torch, card, root, tok, embed, words):
+  """Phase 11b, second part: `preprocess_coco.write_split` of fabricated
+  480 x 640 PNGs at store size 0 and 128, host ms an image by stage."""
+  import concurrent.futures
+  import multiprocessing
+
+  import numpy as np
+
+  from xmcgan_image_generation_tpu_torch import preprocess_coco
+  from xmcgan_image_generation_tpu_torch.data import bert_embed
+  from xmcgan_image_generation_tpu_torch.data import png
+  from xmcgan_image_generation_tpu_torch.data import records
+
+  images_dir = os.path.join(root, "images")
+  os.makedirs(images_dir)
+  ctx = multiprocessing.get_context("spawn")
+  with concurrent.futures.ProcessPoolExecutor(
+      max_workers=os.cpu_count() or 1, mp_context=ctx) as pool:
+    pngs = list(pool.map(fabricate_image, range(CAPTION_IMAGES)))
+  rng = np.random.default_rng(12)
+  examples = []
+  for i, (full, _) in enumerate(pngs):
+    name = f"{i:012d}.png"
+    with open(os.path.join(images_dir, name), "wb") as f:
+      f.write(full)
+    examples.append((name, fabricate_captions(words, 5, rng)))
+  embedder = bert_embed.CaptionEmbedder(tok, embed, 17, BERT_BATCH)
+  for store_size in (0, 128):
+    out = os.path.join(root, f"records_{store_size}")
+    t0 = time.perf_counter()
+    seconds = preprocess_coco.write_split(
+        examples, embedder, images_dir, out, "train", num_shards=4,
+        log_every=0, store_size=store_size)
+    wall = time.perf_counter() - t0
+    n = seconds.pop("images")
+    per_image = {k: v / n * 1e3 for k, v in seconds.items()}
+    shards = sorted(os.listdir(out))
+    first = records.parse_example(
+        records.TFRecordFile(os.path.join(out, shards[0])).read(0))
+    image = png.decode(first["image"][0])
+    want = FULL_SIZE if not store_size else (store_size, store_size)
+    size = sum(os.path.getsize(os.path.join(out, s)) for s in shards)
+    print(f"  preprocess_coco.write_split, {n} images of 480 x 640, "
+          f"store_size {store_size}: {wall:.2f} s ({n / wall:.2f} images/s, "
+          f"{size / n / 1e3:.1f} kB a record); host ms an image: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in per_image.items())
+          + f" ({card})", flush=True)
+    if len(shards) != 4 or image.shape[:2] != want or len(
+        first["caption/embedding"]) != 5 * 17 * 768:
+      fail(f"phase 11b: shards {shards}, first image {image.shape}")
+
+
+def e2e_smoke(torch, root):
+  """Phase 11b, first part: the port's ``run_e2e --smoke`` on the card:
+  preprocess with a random BERT-base, 2 training steps of the test
+  configuration, the evaluation service to ``scores.csv``."""
+  import csv
+
+  from xmcgan_image_generation_tpu_torch import run_e2e
+
+  workdir = os.path.join(root, "e2e")
+  t0 = time.perf_counter()
+  run_e2e.main(["--smoke", f"--workdir={workdir}"])
+  with open(os.path.join(workdir, "checkpoints", "scores.csv")) as f:
+    rows = list(csv.DictReader(f))
+  if len(rows) != 1 or rows[0]["step"] != "2" or not all(
+      math.isfinite(float(v)) for v in rows[0].values()):
+    fail(f"phase 11b: run_e2e --smoke wrote scores.csv rows {rows}")
+  print(f"  run_e2e --smoke on the card (preprocess, train 2 steps, eval): "
+        f"{time.perf_counter() - t0:.2f} s; scores.csv row "
+        f"{json.dumps(rows[0])}", flush=True)
+
+
+def caption_phase(torch, card, dev):
+  """Phase 11: the offline caption stage on the card."""
+  import gc
+
+  def part(label, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"  (phase {label}: {time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
+
+  print("phase 11a: BERT-base caption embedding on the card", flush=True)
+  with tempfile.TemporaryDirectory() as root:
+    tok, embed, words = part("11a", caption_embedding, torch, card, dev, root)
+    print("phase 11b: the caption stage's preprocess and runbook on the "
+          "card", flush=True)
+    part("11b records", caption_records, torch, card, root, tok, embed, words)
+    del embed
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("11b run_e2e", e2e_smoke, torch, root)
+
+
 def main() -> None:
   try:
     import torch
@@ -2826,6 +3087,7 @@ def main() -> None:
     timed("phase 9", modes_phase, torch, card, workdir, phase6)
   timed("phase 10", reference_phase, torch, records, card, dev,
         config.num_train_steps)
+  timed("phase 11", caption_phase, torch, card, dev)
 
   print(json.dumps({"kernels": list(records.values())}))
   print(card)

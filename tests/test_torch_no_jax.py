@@ -11,7 +11,11 @@ a second step in a one-process gloo group, through the collectives of
 generator (``g_spectral_norm``) takes a step through ``main --mode=train``
 there too, then ``--mode=generate`` and ``--mode=export`` on its
 checkpoint, and `utils/reference_bridge.py` reads a flax-serialized
-checkpoint with ``msgpack`` blocked as well."""
+checkpoint with ``msgpack`` blocked as well.  ``transformers`` and Pillow
+(``PIL``) are blocked too: the caption stage (`run_e2e --smoke`'s
+preprocess of PNG sources with a random BERT-base, then training on its
+shards) runs without them, and a JPEG source raises an error that names
+the file and Pillow."""
 
 import json
 import os
@@ -23,7 +27,7 @@ import textwrap
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 _BLOCKED = ("jax", "flax", "optax", "ml_collections",
-            "xmcgan_image_generation_tpu")
+            "xmcgan_image_generation_tpu", "transformers", "PIL")
 
 _SCRIPT = textwrap.dedent("""
     import importlib, importlib.util, json, os, pkgutil, sys
@@ -113,7 +117,8 @@ def test_port_trains_without_jax(tmp_path):
                "configs.coco_xmc_256", "utils.serving", "utils.pretrained",
                "export_serving", "serving_bench", "parallel.mesh",
                "parallel.context", "parallel.collectives",
-               "utils.reference_bridge"):
+               "utils.reference_bridge", "data.tokenizer",
+               "data.bert_embed", "preprocess_coco", "run_e2e"):
     assert f"xmcgan_image_generation_tpu_torch.{name}" in result["modules"]
   lines = (tmp_path / "metrics.jsonl").read_text().splitlines()
   record = json.loads(lines[-1])   # the loss line, written after progress
@@ -196,3 +201,46 @@ def test_reference_layout_trains_and_loads_without_jax(tmp_path):
       torch.zeros(2, 8))
   assert served.shape == (2, 32, 32, 3) and bool(torch.isfinite(
       served).all())
+
+
+_CAPTION_SCRIPT = textwrap.dedent("""
+    import json, os, sys
+    BLOCKED = %r
+    for name in BLOCKED:
+      sys.modules[name] = None   # any import of them raises ImportError
+    import torch
+    torch.set_num_threads(1)
+    from xmcgan_image_generation_tpu_torch import preprocess_coco, run_e2e
+    workdir = sys.argv[1]
+    run_e2e.main(["--smoke", f"--workdir={workdir}", "--device=cpu",
+                  "--phase=preprocess,train"])
+    try:
+      preprocess_coco.encode_image_png(sys.argv[2])
+      error = None
+    except RuntimeError as e:
+      error = str(e)
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in BLOCKED + ("jaxlib",)
+                    and sys.modules[m] is not None)
+    print(json.dumps({"loaded": loaded, "error": error,
+                      "records": sorted(os.listdir(
+                          os.path.join(workdir, "records")))}))
+""" % (_BLOCKED + ("msgpack",),))
+
+
+def test_caption_stage_without_jax_or_pillow(tmp_path):
+  from PIL import Image
+
+  jpeg = tmp_path / "photo.jpg"
+  Image.new("RGB", (8, 6), (200, 30, 40)).save(jpeg)
+  proc = subprocess.run(
+      [sys.executable, "-c", _CAPTION_SCRIPT, str(tmp_path / "w"),
+       str(jpeg)], capture_output=True, text=True, timeout=600, env=_env(),
+      cwd=tmp_path, check=False)
+  assert proc.returncode == 0, proc.stderr[-3000:]
+  result = json.loads(proc.stdout.strip().splitlines()[-1])
+  assert result["loaded"] == []
+  assert "photo.jpg" in result["error"] and "Pillow" in result["error"]
+  assert "coco2014_train.tfrecord-00000-of-00002" in result["records"]
+  lines = (tmp_path / "w" / "metrics.jsonl").read_text().splitlines()
+  assert json.loads(lines[-1])["step"] == 2

@@ -1,5 +1,5 @@
 """PNG decoding without an imaging package, as ``Image.open(...).convert(
-"RGB")`` of Pillow gives it.
+"RGB")`` of Pillow gives it, and encoding.
 
 The machine that drives the card has no imaging package.  `decode` parses
 the chunks, joins the IDAT chunks, inflates them with ``zlib`` and undoes
@@ -10,13 +10,18 @@ the three channels.  It reads 8-bit RGB (color type 2), RGBA (6) and gray
 ``tools/preprocess_coco.py`` of the JAX package writes are 8-bit RGB.
 `unfilter_plain` is the un-filter in numpy, against which the tests hold
 the helper.
+
+`encode` writes an 8-bit PNG with ``zlib``: each row takes the filter type
+whose bytes, read as signed, have the least sum of magnitudes (libpng's
+heuristic), or the types a caller names in turn.  Its bytes need not
+equal Pillow's; the pixels decoded back do.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -24,6 +29,7 @@ from xmcgan_image_generation_tpu_torch.data import native
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 CHANNELS = {0: 1, 2: 3, 6: 4}    # color type -> samples per pixel
+COLOR_TYPE = {c: t for t, c in CHANNELS.items()}
 
 
 def _chunks(data: bytes, name: str) -> Tuple[Tuple[int, ...], bytes]:
@@ -133,3 +139,54 @@ def decode(data: bytes, name: str = "PNG", plain: bool = False
   rows = (unfilter_plain if plain else unfilter)(raw, height, width * bpp,
                                                  bpp)
   return _to_rgb(rows.reshape(height, width, bpp))
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+  return (struct.pack(">I", len(body)) + kind + body
+          + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def filtered_rows(rows: np.ndarray, bpp: int) -> np.ndarray:
+  """``rows`` [height, row_bytes] uint8 under each filter type 0-4:
+  [5, height, row_bytes] uint8 (each predicted from the raw bytes)."""
+  x = rows.astype(np.int16)
+  up = np.zeros_like(x)
+  up[1:] = x[:-1]
+  left = np.zeros_like(x)
+  left[:, bpp:] = x[:, :-bpp]
+  upleft = np.zeros_like(x)
+  upleft[1:, bpp:] = x[:-1, :-bpp]
+  p = left + up - upleft
+  pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+  paeth = np.where((pa <= pb) & (pa <= pc), left,
+                   np.where(pb <= pc, up, upleft))
+  preds = (0, left, up, (left + up) >> 1, paeth)
+  return np.stack([(x - pred) & 255 for pred in preds]).astype(np.uint8)
+
+
+def encode(image: np.ndarray, filters: Optional[Sequence[int]] = None
+           ) -> bytes:
+  """uint8 [H, W, 3] (RGB), [H, W, 4] (RGBA) or [H, W] (gray) -> PNG bytes,
+  deflated at zlib's level 6 (Pillow's default).  ``filters``: the filter
+  types that the rows take in turn (default: each row the type of least
+  sum of signed magnitudes)."""
+  image = np.asarray(image)
+  if image.dtype != np.uint8:
+    raise ValueError(f"PNG encode: dtype {image.dtype}, expected uint8")
+  if image.ndim == 2:
+    image = image[:, :, None]
+  h, w, ch = image.shape
+  if ch not in COLOR_TYPE:
+    raise ValueError(f"PNG encode: {ch} channels; 1, 3 or 4 are written")
+  candidates = filtered_rows(image.reshape(h, w * ch), ch)
+  if filters is None:
+    cost = np.abs(candidates.view(np.int8).astype(np.int32)).sum(axis=2)
+    kinds = np.argmin(cost, axis=0)
+  else:
+    kinds = np.resize(np.asarray(filters, np.int64), h)
+  body = np.concatenate([kinds.astype(np.uint8)[:, None],
+                         candidates[kinds, np.arange(h)]], axis=1)
+  header = struct.pack(">IIBBBBB", w, h, 8, COLOR_TYPE[ch], 0, 0, 0)
+  return (SIGNATURE + _chunk(b"IHDR", header)
+          + _chunk(b"IDAT", zlib.compress(body.tobytes(), 6))
+          + _chunk(b"IEND", b""))

@@ -16,8 +16,9 @@ there is no card.  The configuration is
 package's config files, ``get_config(VARIANT)`` of a port config file
 (``--config=xmcgan_image_generation_tpu_torch/configs/coco_xmc_256.py``,
 ``...coco_xmc_256.py:test``); the data flags override its
-``data_source`` (``tfrecord`` by default: the COCO shards that the JAX
-package's ``tools/preprocess_coco.py`` writes, ``*{coco_version}*train
+``data_source`` (``tfrecord`` by default: the COCO shards that the port's
+``python -m xmcgan_image_generation_tpu_torch.preprocess_coco``, or the JAX
+package's ``tools/preprocess_coco.py``, writes, ``*{coco_version}*train
 .tfrecord*`` and ``*{coco_version}*validation.tfrecord*`` under
 ``data_dir``), ``data_dir`` and ``coco_version``.  ``--config.KEY=VALUE``
 sets any other key of the configuration, as the JAX package's command
