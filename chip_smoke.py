@@ -133,7 +133,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    and encode, tokenize, embed and write, then the port's ``run_e2e
    --smoke`` on the card (preprocess, 2 training steps, the evaluation
    service) and its ``scores.csv`` row;
-12. prints the kernel records as one JSON line, the card line, and last
+12. the workdir on a store: at the flagship's full width, in this
+   process, on ``memory://smoke12`` (``utils/fileio.py``'s fsspec seam),
+   ``train.train`` for 2 steps with a checkpoint (A, A backward, B and C
+   launched twice as often as in one of phase 4's steps), one pass of
+   ``evaluate_continuously`` to ``TRAIN_DONE``, ``generate`` and
+   ``export_from_workdir``; checks that every artifact is in the memory
+   filesystem and nothing landed on local disk, that the ``.pt2`` read
+   from the store serves as the eager EMA G within phase 7's tolerance,
+   that the checkpoint's tensors equal a local save of the same state
+   bit for bit (and prints both saves' seconds and bytes), and that a
+   ``gs://`` workdir raises before any step and writes nothing locally;
+13. prints the kernel records as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.  Any failed phase exits non-zero before
@@ -143,6 +154,7 @@ non-zero at once.
 
 from __future__ import annotations
 
+import copy
 import inspect
 import json
 import math
@@ -2978,6 +2990,233 @@ def caption_phase(torch, card, dev):
     part("11b run_e2e", e2e_smoke, torch, root)
 
 
+STORE_WORKDIR = "memory://smoke12"   # phase 12's workdir on a store
+STORE_STEPS = 2
+STORE_EVAL_NUM = 224                 # phase 12's eval_num
+# A gs:// workdir must raise before a step and never fall back to a local
+# directory.  If gcsfs is installed, it is pointed at a closed port on
+# this host, with an anonymous token, so that the check sends nothing off
+# the machine.
+STORE_GS_EMULATOR = "http://127.0.0.1:9"
+
+
+def _payload_tensors(torch, payload, prefix=""):
+  """``{path: tensor}`` of a checkpoint's nested payload."""
+  out = {}
+  items = (payload.items() if isinstance(payload, dict)
+           else enumerate(payload) if isinstance(payload, list) else ())
+  for key, value in items:
+    if isinstance(value, torch.Tensor):
+      out[f"{prefix}{key}"] = value
+    else:
+      out.update(_payload_tensors(torch, value, f"{prefix}{key}."))
+  return out
+
+
+def workdir_store_phase(torch, records, card, dev, flagship_steps):
+  """Phase 12: every workdir service on a store (``memory://``, through
+  ``utils/fileio.py``) at the flagship's full width: ``train.train``
+  with a checkpoint, one pass of ``evaluate_continuously``, ``generate``
+  and ``export_from_workdir``."""
+  import csv
+  import importlib.util
+  import io
+
+  import fsspec
+  from torch.func import functional_call
+
+  from xmcgan_image_generation_tpu_torch import evaluate
+  from xmcgan_image_generation_tpu_torch import generate
+  from xmcgan_image_generation_tpu_torch import train as train_lib
+  from xmcgan_image_generation_tpu_torch.engine.state import (
+      create_train_state,
+  )
+  from xmcgan_image_generation_tpu_torch.ops.cuda import ntxent
+  from xmcgan_image_generation_tpu_torch.ops.cuda import word_scores as ws
+  from xmcgan_image_generation_tpu_torch.utils import checkpoint
+  from xmcgan_image_generation_tpu_torch.utils import fileio
+  from xmcgan_image_generation_tpu_torch.utils import serving
+
+  config = flagship_config()
+  config.update(num_train_steps=STORE_STEPS, eval_num=STORE_EVAL_NUM,
+                eval_avg_num=EVAL_AVG_NUM)
+  wd = STORE_WORKDIR
+  print(f"phase 12: the workdir on a store ({wd}): train.train "
+        f"{STORE_STEPS} steps ({config.image_size}px, "
+        f"{config.d_step_per_g_step} x {config.batch_size}, {config.dtype}), "
+        f"evaluate_continuously (eval_num {STORE_EVAL_NUM}), generate, "
+        f"export_from_workdir; then a gs:// workdir", flush=True)
+  counters = {"ntxent": ntxent.ntxent_stats, "ntxent_bwd": ntxent.ntxent_bwd,
+              "word_scores_fwd": ws.scores, "word_scores_drn": ws.drn}
+  memory = fsspec.filesystem("memory")
+  home = os.getcwd()
+  gs_conf = copy.deepcopy(fsspec.config.conf.get("gs"))
+  emulator = os.environ.get("STORAGE_EMULATOR_HOST")
+  gs_fs = fileio._FS_CACHE.get("gs")   # noqa: SLF001 - restored below
+
+  def part(label, fn, *args, **kw):
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"  (phase 12 {label}: {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return out
+
+  with tempfile.TemporaryDirectory() as tmp:
+    cwd = os.path.join(tmp, "cwd")
+    os.makedirs(cwd)
+    os.chdir(cwd)   # whatever lands on local disk by mistake lands here
+    try:
+      for fn in counters.values():
+        fn.launches = 0
+      part("train", train_lib.train, config, wd, dev)
+      for name, fn in counters.items():
+        want = records[name]["launches"] / flagship_steps * STORE_STEPS
+        print(f"  launches during the steps: {name} = {fn.launches} (the "
+              f"flagship's a step x {STORE_STEPS} = {want:g})", flush=True)
+        if fn.launches != want:
+          fail(f"phase 12: kernel {name} launched {fn.launches} times, "
+               f"expected {want}")
+        records[name]["launches_by_path"]["workdir_store_128"] = fn.launches
+      lines = [json.loads(line) for line in fileio.read_text(
+          fileio.join(wd, "metrics.jsonl")).splitlines()]
+      losses = [line for line in lines if "d_loss" in line]
+      if [line["step"] for line in losses] != list(
+          range(1, STORE_STEPS + 1)):
+        fail(f"phase 12: loss lines {losses}")
+      for line in losses:
+        for key, value in line.items():
+          if not math.isfinite(value):
+            fail(f"phase 12, step {line['step']}: {key} = {value}")
+      part("evaluate", evaluate.evaluate_continuously, config, wd, dev,
+           timeout=60)
+      rows = list(csv.DictReader(io.StringIO(fileio.read_text(
+          fileio.join(wd, "checkpoints", "scores.csv")))))
+      if [row["step"] for row in rows] != [str(STORE_STEPS)] or not all(
+          math.isfinite(float(v)) for v in rows[0].values()):
+        fail(f"phase 12: scores.csv rows {rows}")
+      print(f"  scores.csv row: {json.dumps(rows[0])}", flush=True)
+      samples = part("generate", generate.generate, config, wd, dev)
+      (artifact,) = part("export", serving.export_from_workdir, config, wd,
+                         device=dev)
+
+      prefix = wd[len("memory://"):]
+      files = {p[len(prefix) + 2:]: memory.size(p)
+               for p in memory.find(f"/{prefix}")}
+      base = fileio.basename(artifact)[:-len(".pt2")]
+      expected = [f"checkpoints/checkpoint_{STORE_STEPS}.pt",
+                  "checkpoints/TRAIN_DONE", "checkpoints/scores.csv",
+                  "checkpoints.jsonl", "metrics.jsonl", "hparams.json",
+                  f"serving/{base}.pt2", f"serving/{base}.json"]
+      missing = [name for name in expected if not files.get(name)]
+      events = [n for n in files if n.startswith("events.out.tfevents.")]
+      grids = [n for n in files if n.startswith("samples/")]
+      images = [n for n in files if n.startswith("images/")]
+      print(f"  in the memory filesystem: {len(files)} files, "
+            f"{sum(files.values())} bytes ({len(events)} event files, "
+            f"{len(images)} training grids, {len(grids)} sample grids in "
+            f"{samples})", flush=True)
+      if missing or not (events and grids and images):
+        fail(f"phase 12: missing from {wd}: {missing}; files {sorted(files)}")
+      local = os.listdir(cwd) + [n for n in os.listdir(home)
+                                 if n.startswith(("memory:", "gs:"))]
+      if local:
+        fail(f"phase 12: the store's workdir wrote local files {local}")
+
+      # The artifact read back from the store, against the eager EMA G of
+      # the checkpoint it came from (phase 7's inputs and tolerance).
+      served = serving.load_exported(artifact).module()
+      manager = checkpoint.CheckpointManager(checkpoint.checkpoints_dir(wd))
+      state = manager.restore(STORE_STEPS, create_train_state(
+          config, dev, seed=config.seed))
+      g = state.generator.eval()
+      rng = torch.Generator().manual_seed(7)
+      b = SERVE_BATCHES[1]
+      x = [v.to(dev) for v in (
+          torch.randn(b, serving.BERT_DIM, generator=rng),
+          torch.randn(b, serving.COCO_MAX_TEXT_LENGTH, serving.BERT_DIM,
+                      generator=rng),
+          torch.randint(3, serving.COCO_MAX_TEXT_LENGTH + 1, (b, 1),
+                        generator=rng).float(),
+          torch.randn(b, config.z_dim, generator=rng))]
+      with torch.no_grad():
+        got = served(*x).float()
+        cond = dict(zip(("sentence_embedding", "embedding", "max_len"),
+                        (v.to(g.dtype) for v in x[:3])))
+        want = functional_call(g, state.ema_params,
+                               (cond, x[3].to(g.dtype))).float()
+      err = float((got - want).abs().max())
+      print(f"  the .pt2 read from the store, batch {b}: against the eager "
+            f"EMA G max |diff| {err:.3e} (phase 7's tolerance {SERVE_ATOL})",
+            flush=True)
+      if not err <= SERVE_ATOL:
+        fail(f"phase 12: the store's artifact differs from eager G by {err}")
+
+      # The same state saved to the store and to local disk: seconds,
+      # bytes, and the tensors bit for bit (the training run's own
+      # checkpoint as well).
+      local_dir = os.path.join(tmp, "local")
+      saves = {}
+      for label, directory in (("memory://", f"{wd}-save"),
+                               ("local", local_dir)):
+        target = checkpoint.CheckpointManager(directory)
+        seconds, size = target.save(STORE_STEPS, state)
+        saves[label] = (seconds, size, target.path(STORE_STEPS))
+        print(f"  save of the step-{STORE_STEPS} state to {label}: "
+              f"{seconds:.2f} s, {size} bytes ({size / 1e9:.3f} GB) ({card})",
+              flush=True)
+      del state, g, served
+      want = _payload_tensors(torch, checkpoint.load(
+          saves["local"][2], map_location="cpu"))
+      for path in (saves["memory://"][2], manager.path(STORE_STEPS)):
+        got = _payload_tensors(torch, checkpoint.load(path,
+                                                      map_location="cpu"))
+        unequal = [k for k in want if k not in got
+                   or not torch.equal(got[k], want[k])]
+        if set(got) != set(want) or unequal:
+          fail(f"phase 12: {path} differs from the local save in "
+               f"{unequal[:5]}")
+      print(f"  {len(want)} tensors of the store's checkpoints equal the "
+            f"local save's bit for bit", flush=True)
+
+      # A gs:// workdir: raises before a step, leaves nothing locally.
+      fsspec.config.conf.setdefault("gs", {})["token"] = "anon"
+      os.environ["STORAGE_EMULATOR_HOST"] = STORE_GS_EMULATOR
+      for fn in counters.values():
+        fn.launches = 0
+      config.num_train_steps = 1
+      try:
+        part("gs://", train_lib.train, config, "gs://smoke12/run", dev)
+        error = None
+      except Exception as e:  # noqa: BLE001 - any error is the answer
+        error = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+      launched = {name: fn.launches for name, fn in counters.items()}
+      local = os.listdir(cwd) + [n for n in os.listdir(home)
+                                 if n.startswith(("memory:", "gs:"))]
+      print(f"  gs://smoke12/run (gcsfs installed: "
+            f"{importlib.util.find_spec('gcsfs') is not None}): {error}; "
+            f"launches {launched}; local files {local}", flush=True)
+      if error is None or any(launched.values()) or local:
+        fail("phase 12: a gs:// workdir did not raise before a step, or "
+             "wrote locally")
+    finally:
+      os.chdir(home)
+      if gs_fs is None:
+        fileio._FS_CACHE.pop("gs", None)   # noqa: SLF001
+      else:
+        fileio._FS_CACHE["gs"] = gs_fs   # noqa: SLF001
+      if gs_conf is None:
+        fsspec.config.conf.pop("gs", None)
+      else:
+        fsspec.config.conf["gs"] = gs_conf
+      if emulator is None:
+        os.environ.pop("STORAGE_EMULATOR_HOST", None)
+      else:
+        os.environ["STORAGE_EMULATOR_HOST"] = emulator
+      for path in (f"/{wd[len('memory://'):]}", f"/{wd[len('memory://'):]}-save"):
+        if memory.exists(path):
+          memory.rm(path, recursive=True)
+
+
 def main() -> None:
   try:
     import torch
@@ -3088,6 +3327,8 @@ def main() -> None:
   timed("phase 10", reference_phase, torch, records, card, dev,
         config.num_train_steps)
   timed("phase 11", caption_phase, torch, card, dev)
+  timed("phase 12", workdir_store_phase, torch, records, card, dev,
+        config.num_train_steps)
 
   print(json.dumps({"kernels": list(records.values())}))
   print(card)

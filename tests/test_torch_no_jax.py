@@ -15,7 +15,10 @@ checkpoint with ``msgpack`` blocked as well.  ``transformers`` and Pillow
 (``PIL``) are blocked too: the caption stage (`run_e2e --smoke`'s
 preprocess of PNG sources with a random BERT-base, then training on its
 shards) runs without them, and a JPEG source raises an error that names
-the file and Pillow."""
+the file and Pillow.  A local workdir never imports fsspec, and one step
+on a ``memory://`` workdir with JAX blocked lands in the memory
+filesystem (the port's seam needs fsspec alone, no part of the JAX
+package)."""
 
 import json
 import os
@@ -87,7 +90,8 @@ _SCRIPT = textwrap.dedent("""
                     if m.split(".")[0] in BLOCKED + ("jaxlib",)
                     and sys.modules[m] is not None)
     print(json.dumps({"step": state.step, "loaded": loaded,
-                      "modules": modules, "collective_calls": calls}))
+                      "modules": modules, "collective_calls": calls,
+                      "fsspec": "fsspec" in sys.modules}))
 """ % (_BLOCKED,))
 
 
@@ -107,6 +111,7 @@ def test_port_trains_without_jax(tmp_path):
   result = json.loads(proc.stdout.strip().splitlines()[-1])
   assert result["step"] == 2 and result["loaded"] == []
   assert result["collective_calls"] > 0
+  assert not result["fsspec"]   # a local workdir never imports fsspec
   # Every module of the port was imported, the new path's among them.
   for name in ("evaluate", "generate", "main", "models.inception_v3",
                "utils.checkpoint", "utils.eval_metrics", "utils.fid",
@@ -244,3 +249,38 @@ def test_caption_stage_without_jax_or_pillow(tmp_path):
   assert "coco2014_train.tfrecord-00000-of-00002" in result["records"]
   lines = (tmp_path / "w" / "metrics.jsonl").read_text().splitlines()
   assert json.loads(lines[-1])["step"] == 2
+
+
+_MEMORY_SCRIPT = textwrap.dedent("""
+    import json, os, sys
+    BLOCKED = %r
+    for name in BLOCKED:
+      sys.modules[name] = None   # any import of them raises ImportError
+    import torch
+    torch.set_num_threads(1)
+    import fsspec
+    from xmcgan_image_generation_tpu_torch import train
+    from xmcgan_image_generation_tpu_torch.configs import coco_xmc
+    config = coco_xmc.get_test_config()
+    config.num_train_steps = 1
+    state = train.train(config, "memory://nojax", "cpu")
+    fs = fsspec.filesystem("memory")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in BLOCKED + ("jaxlib",)
+                    and sys.modules[m] is not None)
+    print(json.dumps({"step": state.step, "loaded": loaded,
+                      "files": sorted(fs.find("/nojax")),
+                      "local": os.listdir(".")}))
+""" % (_BLOCKED,))
+
+
+def test_memory_workdir_without_jax(tmp_path):
+  proc = subprocess.run(
+      [sys.executable, "-c", _MEMORY_SCRIPT], capture_output=True,
+      text=True, timeout=600, env=_env(), cwd=tmp_path, check=False)
+  assert proc.returncode == 0, proc.stderr[-3000:]
+  result = json.loads(proc.stdout.strip().splitlines()[-1])
+  assert result["step"] == 1 and result["loaded"] == []
+  assert result["local"] == []
+  assert {"/nojax/checkpoints/checkpoint_1.pt", "/nojax/metrics.jsonl",
+          "/nojax/checkpoints/TRAIN_DONE"} <= set(result["files"])

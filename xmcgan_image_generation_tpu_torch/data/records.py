@@ -24,6 +24,7 @@ from typing import Dict, Iterator, List, Tuple, Union
 import numpy as np
 
 from xmcgan_image_generation_tpu_torch.data import native
+from xmcgan_image_generation_tpu_torch.utils import fileio
 
 Feature = Union[List[bytes], np.ndarray]
 
@@ -220,7 +221,9 @@ class TFRecordWriter:
   """Writes TFRecord files readable by TF and by `TFRecordFile`."""
 
   def __init__(self, path: str):
-    self._f = open(path, "wb")
+    # Through the seam: TensorBoard events go into a remote workdir
+    # (`utils.tb_writer`), and appear there when the file is closed.
+    self._f = fileio.open(path, "wb")
 
   def write(self, record: bytes) -> None:
     header = struct.pack("<Q", len(record))

@@ -20,8 +20,8 @@ Usage (defaults: EMA weights, symbolic batch dimension, the card)::
 from __future__ import annotations
 
 import argparse
-import os
 
+from xmcgan_image_generation_tpu_torch.utils import fileio
 from xmcgan_image_generation_tpu_torch.utils import serving
 
 
@@ -50,7 +50,7 @@ def main(argv=None) -> None:
       weights=args.weights, device=args.device, out_dir=args.out,
       quantize=args.quantize)
   for path in written:
-    print(f"wrote {path} ({os.path.getsize(path) / 1e6:.1f} MB) + .json")
+    print(f"wrote {path} ({fileio.getsize(path) / 1e6:.1f} MB) + .json")
 
 
 if __name__ == "__main__":

@@ -53,7 +53,6 @@ from __future__ import annotations
 
 import json
 import logging
-import os
 import time
 from typing import Any, Dict, Tuple
 
@@ -76,6 +75,7 @@ from xmcgan_image_generation_tpu_torch.engine.step import (
 from xmcgan_image_generation_tpu_torch.parallel import collectives
 from xmcgan_image_generation_tpu_torch.parallel import context
 from xmcgan_image_generation_tpu_torch.parallel.mesh import MeshRules
+from xmcgan_image_generation_tpu_torch.utils import fileio
 from xmcgan_image_generation_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     checkpoints_dir,
@@ -160,7 +160,7 @@ def _train(config, workdir: str, mesh) -> TrainState:
     raise ValueError(
         f"Global batch size {config.batch_size} must be divisible by the "
         f"data mesh axis ({mesh.world} processes).")
-  os.makedirs(workdir, exist_ok=True)
+  fileio.makedirs(workdir)
   run, num_train_examples = setup(config, device)
   state, _, batches = run
   num_train_steps = compute_num_train_steps(config, num_train_examples)
@@ -237,9 +237,10 @@ def _train(config, workdir: str, mesh) -> TrainState:
         log.info("checkpoint @%d saved in %.2f s, %d bytes", step,
                  save_seconds, size)
         if is_main:
-          with open(os.path.join(workdir, "checkpoints.jsonl"), "a") as f:
-            f.write(json.dumps({"step": step, "seconds": save_seconds,
-                                "bytes": size}) + "\n")
+          fileio.append_text(
+              fileio.join(workdir, "checkpoints.jsonl"),
+              json.dumps({"step": step, "seconds": save_seconds,
+                          "bytes": size}) + "\n")
       if preempt_now:
         preempted_at = step
         break

@@ -2,8 +2,11 @@
 package's ``utils/checkpoint.py``).
 
 A checkpoint is one file, ``{directory}/checkpoint_{step}.pt``, written
-with ``torch.save`` to a temporary file that is then renamed over it, so
-a listed step is always complete.  It holds G, D (with the batch
+with ``torch.save`` so that a listed step is always complete: locally to
+a temporary file that is then renamed over it; on a store
+(``gs://``, through `utils.fileio`) into one object, which appears when
+its upload ends (a store's rename is a copy and a delete, so it is not
+used).  It holds G, D (with the batch
 statistics and the spectral-norm ``u0``), the EMA, both Adam states (with
 a learning-rate schedule's update count, ``lr_count``), the step and the
 data loader's state: the position of the next batch that the training
@@ -52,6 +55,33 @@ def list_steps(directory: str) -> List[int]:
                                              fileio.listdir(directory)) if m)
 
 
+def write(payload: Any, path: str) -> None:
+  """``torch.save`` of ``payload`` so that ``path`` appears whole: locally
+  a temporary file renamed over it, on a store one upload, which is
+  thrown away if the save fails (so no partial checkpoint is listed)."""
+  if fileio.is_remote(path):
+    f = fileio.open(path, "wb")
+    try:
+      torch.save(payload, f)
+      f.close()                 # the last part: the object appears
+    except BaseException:
+      fileio.discard(f, path)
+      raise
+    return
+  tmp = path + ".tmp"
+  torch.save(payload, tmp)
+  os.replace(tmp, path)
+
+
+def load(path: str, **kwargs) -> Any:
+  """``torch.load(path, weights_only=True, **kwargs)`` of a local file or
+  of a seekable fsspec file of a remote one."""
+  if not fileio.is_remote(path):
+    return torch.load(path, weights_only=True, **kwargs)
+  with fileio.open(path, "rb") as f:
+    return torch.load(f, weights_only=True, **kwargs)
+
+
 class CheckpointManager:
   """Saves and restores `TrainState` and, with it, a data stream that
   has ``get_state`` and ``set_state``."""
@@ -64,18 +94,13 @@ class CheckpointManager:
   def path(self, step: int) -> str:
     return fileio.join(self.directory, f"checkpoint_{int(step)}.pt")
 
-  def loader_path(self, step: int, rank: int) -> str:
-    """Process ``rank``'s loader state at ``step`` (more than one
-    process)."""
-    return fileio.join(
-        self.directory,
-        f"checkpoint_{int(step)}.loader_{rank}-of-{self.mesh.world}.pt")
-
-  @staticmethod
-  def _write(payload, path: str) -> None:
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+  def loader_path(self, step: int, rank: int,
+                  world: Optional[int] = None) -> str:
+    """Process ``rank``'s loader state at ``step`` in a run of ``world``
+    processes (by default this manager's)."""
+    world = self.mesh.world if world is None else world
+    return fileio.join(self.directory,
+                       f"checkpoint_{int(step)}.loader_{rank}-of-{world}.pt")
 
   def save(self, step: int, state: TrainState,
            data_iter: Any = None) -> Tuple[float, int]:
@@ -87,8 +112,8 @@ class CheckpointManager:
     if self.mesh is not None:
       if data_iter is not None:
         path = self.loader_path(step, self.mesh.rank)
-        self._write(data_iter.get_state(), path)
-        loader_bytes = os.path.getsize(path)
+        write(data_iter.get_state(), path)
+        loader_bytes = fileio.getsize(path)
       collectives.barrier(self.mesh)   # every loader's state is down
       if self.mesh.rank != 0:
         return time.perf_counter() - start, loader_bytes
@@ -102,23 +127,22 @@ class CheckpointManager:
         "data_iter": data_iter.get_state() if data_iter is not None else None,
     }
     path = self.path(step)
-    self._write(payload, path)
+    write(payload, path)
     for old in list_steps(self.directory)[:-self.max_to_keep]:
-      os.remove(self.path(old))
+      fileio.remove(self.path(old))
       if self.mesh is not None:
         for rank in range(self.mesh.world):
-          if os.path.exists(self.loader_path(old, rank)):
-            os.remove(self.loader_path(old, rank))
+          if fileio.exists(self.loader_path(old, rank)):
+            fileio.remove(self.loader_path(old, rank))
     return (time.perf_counter() - start,
-            os.path.getsize(path) + loader_bytes)
+            fileio.getsize(path) + loader_bytes)
 
   def restore(self, step: int, state: TrainState,
               data_iter: Any = None) -> TrainState:
     """Loads the checkpoint of ``step`` into ``state`` (in place) and, when
     given, the data stream; returns ``state``."""
     device = next(state.generator.parameters()).device
-    payload = torch.load(self.path(step), map_location=device,
-                         weights_only=True)
+    payload = load(self.path(step), map_location=device)
     state.generator.load_state_dict(payload["generator"])
     state.discriminator.load_state_dict(payload["discriminator"])
     with torch.no_grad():
@@ -129,12 +153,12 @@ class CheckpointManager:
     state.step = int(payload["step"])
     if data_iter is not None and self.mesh is not None:
       path = self.loader_path(step, self.mesh.rank)
-      if not os.path.exists(path):
+      if not fileio.exists(path):
         raise FileNotFoundError(
             f"{path}: checkpoint {step} holds no loader state for process "
             f"{self.mesh.rank} of {self.mesh.world} (written by a run of "
             f"another world size?)")
-      data_iter.set_state(torch.load(path, weights_only=True))
+      data_iter.set_state(load(path))
     elif data_iter is not None and payload["data_iter"] is not None:
       data_iter.set_state(payload["data_iter"])
     log.info("Restored checkpoint %s", self.path(step))

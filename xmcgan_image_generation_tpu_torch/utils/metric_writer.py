@@ -11,13 +11,18 @@ loop) it only logs the scalars.
 device and reads them to the host once, when the interval's mean is
 written.  `ReportProgress` writes ``steps_per_sec`` and
 ``perf/images_per_sec``; `Profile` captures a few steps with
-``torch.profiler``.
+``torch.profiler``.  Everything goes through `utils.fileio`, so a
+``gs://`` or ``memory://`` workdir takes it all.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
+import shutil
+import socket
+import tempfile
 import time
 from typing import Dict, Mapping, Optional
 
@@ -41,7 +46,7 @@ class MetricWriter:
     if just_logging:
       return
     fileio.makedirs(workdir)
-    self._f = open(fileio.join(workdir, "metrics.jsonl"), "a")
+    self._f = fileio.AppendableFile(fileio.join(workdir, "metrics.jsonl"))
     self._tb = EventFileWriter(workdir)
 
   def write_scalars(self, step: int, scalars: Mapping[str, float]) -> None:
@@ -148,14 +153,27 @@ class Profile:
     if self._prof is None and step == self.profile_step:
       self._prof = torch.profiler.profile(
           activities=self.activities,
-          on_trace_ready=torch.profiler.tensorboard_trace_handler(
-              self.logdir))
+          on_trace_ready=self._write_trace)
       self._prof.__enter__()
     elif (self._prof is not None
           and step >= self.profile_step + self.num_profile_steps):
       self.close()
       log.info("Wrote a torch.profiler trace of steps %d-%d to %s",
                self.profile_step, step, self.logdir)
+
+  def _write_trace(self, prof) -> None:
+    """``tensorboard_trace_handler``'s file, through `utils.fileio`: the
+    profiler writes only to a local path, so the trace goes to a
+    temporary file that is copied to the logdir, local or on a store."""
+    name = (f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}"
+            ".pt.trace.json")
+    with tempfile.TemporaryDirectory() as tmp:
+      local = os.path.join(tmp, name)
+      prof.export_chrome_trace(local)
+      fileio.makedirs(self.logdir)
+      with open(local, "rb") as src, fileio.open(
+          fileio.join(self.logdir, name), "wb") as dst:
+        shutil.copyfileobj(src, dst)
 
   def close(self) -> None:
     """Stops a capture still running (the loop ended inside it)."""

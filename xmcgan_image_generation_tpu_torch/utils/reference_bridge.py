@@ -39,6 +39,7 @@ import torch
 
 from xmcgan_image_generation_tpu_torch.engine.state import TrainState
 from xmcgan_image_generation_tpu_torch.utils import bridge
+from xmcgan_image_generation_tpu_torch.utils import fileio
 
 REGION_DIM = 768  # BERT feature width of the region-context map.
 
@@ -174,8 +175,7 @@ def msgpack_restore(data: bytes) -> Any:
 
 def load_reference_msgpack(path: str) -> Dict[str, Any]:
   """Reads a flax-serialized reference checkpoint into nested dicts."""
-  with open(path, "rb") as f:
-    return msgpack_restore(f.read())
+  return msgpack_restore(fileio.read_bytes(path))
 
 
 def _flatten(tree: Mapping[str, Any]) -> Dict[str, Any]:

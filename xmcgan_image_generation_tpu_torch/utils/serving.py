@@ -30,6 +30,7 @@ a splitting wrapper, or a program with the collectives inside it.
 from __future__ import annotations
 
 import importlib
+import io
 import json
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
@@ -255,9 +256,10 @@ def artifact_metadata(config, *, weights: str, step: Optional[int],
 
 
 def load_exported(path: str) -> torch.export.ExportedProgram:
-  """A saved artifact; call it as ``load_exported(path).module()(*inputs)``
-  on the device it was exported for."""
-  return torch.export.load(path)
+  """A saved artifact, local or on a store; call it as
+  ``load_exported(path).module()(*inputs)`` on the device it was exported
+  for."""
+  return torch.export.load(io.BytesIO(fileio.read_bytes(path)))
 
 
 def export_from_workdir(config, workdir: str, *, step: Optional[int] = None,
@@ -308,10 +310,15 @@ def export_from_workdir(config, workdir: str, *, step: Optional[int] = None,
 def _restore_generator(config, ckpt, step: int, device: torch.device
                        ) -> Tuple[nn.Module, Dict[str, Tensor]]:
   """G (parameters and buffers) and its EMA from the checkpoint of
-  ``step``.  The file is memory-mapped and only G's tensors are read: the
-  export builds neither D nor the optimizers."""
-  payload = torch.load(ckpt.path(step), map_location="cpu",
-                       weights_only=True, mmap=True)
+  ``step``.  A local file is memory-mapped, so that only G's tensors are
+  read (a remote one is read whole): the export builds neither D nor the
+  optimizers."""
+  from xmcgan_image_generation_tpu_torch.utils import checkpoint
+
+  path = ckpt.path(step)
+  payload = checkpoint.load(
+      path, map_location="cpu",
+      **({} if fileio.is_remote(path) else {"mmap": True}))
   generator = xmc_net.Generator(config, device="meta")
   generator.load_state_dict({k: v.to(device) for k, v in
                              payload["generator"].items()}, assign=True)
@@ -330,8 +337,12 @@ def _write_artifacts(config, ckpt, step: int, names: List[str],
     exported = export_generator(generator, params, config,
                                 batch_size=batch_size, quantize=quantize,
                                 device=device)
-    torch.export.save(exported, base + ".pt2")
-    with open(base + ".json", "w") as f:
+    # The archive's writer seeks, which a store's upload cannot: the
+    # artifact is built in memory and published in one write.
+    buf = io.BytesIO()
+    torch.export.save(exported, buf)
+    fileio.atomic_write(base + ".pt2", buf.getvalue())
+    with fileio.open(base + ".json", "w") as f:
       f.write(artifact_metadata(config, weights=name, step=step,
                                 batch_size=batch_size, device=device,
                                 quantize=quantize))

@@ -7,8 +7,9 @@ In a service of several processes only process 0 polls and writes
 directory, yields the steps not evaluated yet and returns on timeout or
 once the ``TRAIN_DONE`` marker is there and everything is evaluated.
 `TaskManagerWithCsvResults` skips the steps already in ``scores.csv`` and
-appends a row per evaluated step.  A checkpoint file appears by an atomic
-rename (`utils.checkpoint`), so every listed step is complete.
+appends a row per evaluated step.  A checkpoint file appears whole, by an
+atomic rename locally or when its one upload ends on a store
+(`utils.checkpoint`), so every listed step is complete.
 """
 
 from __future__ import annotations
@@ -94,7 +95,7 @@ class TaskManagerWithCsvResults(TaskManager):
   def _evaluated_steps(self) -> List[int]:
     if not fileio.exists(self._score_file):
       return []
-    with open(self._score_file) as f:
+    with fileio.open(self._score_file) as f:
       return [int(row["step"]) for row in csv.DictReader(f)]
 
   def add_eval_result(self, step: int, result: Dict[str, float],
