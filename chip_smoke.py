@@ -66,6 +66,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    EMA G on the same inputs, prints the int8-vs-bf16 deviation, the bytes,
    ms per request and images/s; and holds the ResNet-50 tower's
    antialiased 256 -> 224 resize on the card against the CPU's;
+7b. the multi-device serving artifact, and artifacts moved between
+   devices: (a) exports phase 4's checkpoint (EMA, bfloat16) with
+   ``export_generator(..., batch_size=56, devices=["cuda:0", "cuda:0"])``
+   (two replicas on the one card), checks the file holds one copy of the
+   weights, serves it from a torch-only process that splits the batch by
+   hand from the file's ``sharding.json``, holds the images bit for bit
+   to the shard program on each half and within 2^-5 to phase 7's
+   artifact at 56, and times it (CUDA events) beside phase 7's artifact
+   at 56 and at 28; (b) serves it through ``load_exported(path,
+   devices=...)`` from inputs on the card and on the host, bit for bit
+   to (a); (c) exports the checkpoint on the host's CPU
+   (``export_from_workdir(device="cpu")``), serves it on the card through
+   ``load_exported(path, device="cuda")`` against phase 7's card-traced
+   artifact at 1, 8 and 56, and reports what ``load_exported(device=
+   "cpu")`` of a card-traced artifact does in a process with
+   ``CUDA_VISIBLE_DEVICES=""``, which must agree with
+   ``serving.SERVES_ON``.  None of kernels A-D is on these paths;
 8. data parallelism (``parallel/``): (a) holds kernels B, C and D against
    their plain versions at the shapes the sharded word-score dispatch
    gives them (images x captions a process: 28 x 56 at the flagship over
@@ -1503,6 +1520,8 @@ def serve_flagship(torch, card, workdir, config, dev):
   for name in ("bf16", "int8"):
     print(f"  {name} artifact loaded in "
           f"{report[paths[name]]['load_seconds']:.2f} s", flush=True)
+  phase7 = {"bf16": paths["bf16"], "inputs": inputs,
+            "images": {b: served[(paths["bf16"], b)] for b in inputs}}
 
   # The tower's input resize (``utils/pretrained.py``) at the 256 px
   # configuration's 256 -> 224, where it antialiases: the card's result
@@ -1517,6 +1536,280 @@ def serve_flagship(torch, card, workdir, config, dev):
         f"CPU: max |diff| {err:.3e} (tolerance 1e-5)", flush=True)
   if not err <= 1e-5:
     fail(f"the tower's resize on the card differs from the CPU's by {err}")
+  return phase7
+
+
+SHARDED_BATCH = SERVE_BATCHES[-1]   # phase 7b's global batch
+SHARDED_DEVICES = ("cuda:0", "cuda:0")   # two replicas on the one card
+
+# Phase 7b's serving process: torch and nothing of the repository, as
+# _SERVE_SCRIPT.  It serves the sharded artifact by hand (the placement
+# from its sharding.json, the program on each chunk, the images
+# concatenated) and times it beside the single artifact at the global
+# batch and at one chunk's rows, SERVE_WINDOWS windows of SERVE_STEPS
+# calls with CUDA events.
+_SHARDED_SERVE_SCRIPT = """
+import json, sys
+BLOCKED = ("jax", "jaxlib", "flax", "xmcgan_image_generation_tpu",
+           "xmcgan_image_generation_tpu_torch")
+for name in BLOCKED:
+  sys.modules[name] = None
+import torch
+sharded_path, single_path, inputs_path, out_path, steps, windows = (
+    sys.argv[1:])
+extra = {"sharding.json": ""}
+shard = torch.export.load(sharded_path, extra_files=extra).module()
+sharding = json.loads(extra["sharding.json"])
+n, rows = sharding["num_devices"], sharding["shard_batch_size"]
+single = torch.export.load(single_path).module()
+x = torch.load(inputs_path)[sharding["batch_size"]]
+
+
+def sharded(x):
+  # Every replica is on the card the program was traced on.
+  return torch.cat([shard(*(v[i * rows:(i + 1) * rows] for v in x))
+                    for i in range(n)])
+
+
+def windows_ms(fn):
+  fn()
+  torch.cuda.synchronize()
+  ms = []
+  for _ in range(int(windows)):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(int(steps)):
+      fn()
+    end.record()
+    end.synchronize()
+    ms.append(start.elapsed_time(end) / int(steps))
+  return ms
+
+
+with torch.no_grad():
+  images = sharded(x)
+  report = {"sharding": sharding, "ms_windows": {
+      "sharded": windows_ms(lambda: sharded(x)),
+      "single_batch": windows_ms(lambda: single(*x)),
+      "single_chunk": windows_ms(lambda: single(*(v[:rows] for v in x)))}}
+torch.save(images, out_path)
+report["loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED
+                          and sys.modules[m] is not None)
+print(json.dumps(report))
+"""
+
+# Phase 7c's process that sees no card: the port's load_exported of a
+# card-traced artifact onto the CPU, and batch 1 served there if it loads.
+_NO_CARD_SCRIPT = """
+import json, logging, sys
+root, path, inputs_path = sys.argv[1:]
+sys.path.insert(0, root)
+import torch
+from xmcgan_image_generation_tpu_torch.utils import serving
+
+
+class Keep(logging.Handler):
+  # torch.export.load logs the cause of a failed load before it raises.
+  records = []
+
+  def emit(self, record):
+    self.records.append(record)
+
+
+logging.getLogger("torch.export").addHandler(Keep())
+out = {"cuda_available": torch.cuda.is_available()}
+try:
+  program = serving.load_exported(path, device="cpu")
+except Exception as e:
+  out["loaded"] = False
+  out["error"] = f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
+  out["cause"] = [f"{type(r.exc_info[1]).__name__}: "
+                  f"{str(r.exc_info[1]).splitlines()[0][:300]}"
+                  for r in Keep.records if r.exc_info]
+else:
+  out["loaded"] = True
+  x, want = torch.load(inputs_path)
+  got = program.module()(*x)
+  out["max_abs_diff_vs_card"] = float((got - want).abs().max())
+print(json.dumps(out))
+"""
+
+
+def compare_images(got, want):
+  """max |got - want| and the share of equal pixels."""
+  return (float((got - want).abs().max()),
+          float((got == want).float().mean()))
+
+
+def serve_sharded(torch, card, workdir, config, dev, phase7):
+  """Phase 7b: the sharded artifact of phase 4's checkpoint, served over
+  two replicas on the card from a torch-only process and through
+  ``load_exported(devices=...)``; a CPU-traced artifact served on the
+  card; a card-traced one loaded where no card is seen."""
+  import statistics
+
+  from xmcgan_image_generation_tpu_torch.engine.state import (
+      create_train_state,
+  )
+  from xmcgan_image_generation_tpu_torch.utils import checkpoint
+  from xmcgan_image_generation_tpu_torch.utils import serving
+
+  b, n = SHARDED_BATCH, len(SHARDED_DEVICES)
+  rows = b // n
+  root = os.path.join(workdir, "serving_7b")
+  os.makedirs(root)
+  print(f"phase 7b: the sharded artifact: phase 4's checkpoint "
+        f"({config.image_size}px G, EMA weights, {config.dtype}) exported "
+        f"at a batch of {b} over devices {list(SHARDED_DEVICES)} (two "
+        f"replicas on one card: the halves run one after the other on one "
+        f"stream, so no speedup is possible here)", flush=True)
+  manager = checkpoint.CheckpointManager(checkpoint.checkpoints_dir(workdir))
+  step = manager.latest_step()
+  state = manager.restore(step, create_train_state(config, dev,
+                                                   seed=config.seed))
+  t0 = time.perf_counter()
+  exported = serving.export_generator(state.generator, state.ema_params,
+                                      config, batch_size=b,
+                                      devices=SHARDED_DEVICES)
+  sharded_path = os.path.join(root, f"generator_ema_{n}x{rows}.pt2")
+  exported.save(sharded_path)
+  del state
+  weight_bytes = sum(t.nbytes for t in exported.program.state_dict.values())
+  sharded_bytes = os.path.getsize(sharded_path)
+  print(f"  export and save {time.perf_counter() - t0:.2f} s; "
+        f"{sharded_bytes} bytes, one copy of the weights {weight_bytes}; "
+        f"phase 7's single artifact {os.path.getsize(phase7['bf16'])} "
+        f"({card})", flush=True)
+  if sharded_bytes > 1.5 * weight_bytes:
+    fail(f"phase 7b: the sharded artifact holds {sharded_bytes} bytes for "
+         f"{weight_bytes} of weights: not one copy")
+
+  # (a) The torch-only process serves it by hand.
+  inputs_path = os.path.join(root, "inputs.pt")
+  out_path = os.path.join(root, "images.pt")
+  x = phase7["inputs"][b]
+  torch.save({b: x}, inputs_path)
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+      [sys.executable, "-c", _SHARDED_SERVE_SCRIPT, sharded_path,
+       phase7["bf16"], inputs_path, out_path, str(SERVE_STEPS),
+       str(SERVE_WINDOWS)],
+      capture_output=True, text=True, timeout=600, cwd=root, check=False)
+  if proc.returncode != 0:
+    fail(f"phase 7b: the serving process: {proc.stderr[-3000:]}")
+  report = json.loads(proc.stdout.strip().splitlines()[-1])
+  print(f"  (a) torch-only process: {time.perf_counter() - t0:.2f} s in "
+        f"all; sharding.json {json.dumps(report['sharding'])}; modules of "
+        f"the repository or JAX loaded there: {report['loaded']}",
+        flush=True)
+  if report["loaded"]:
+    fail(f"phase 7b: the serving process imported {report['loaded']}")
+  got = torch.load(out_path)
+  shard = exported.program.module()
+  with torch.no_grad():
+    halves = torch.cat([shard(*(v[i * rows:(i + 1) * rows] for v in x))
+                        for i in range(n)])
+  err, equal = compare_images(got, halves)
+  print(f"  (a) against the shard program on each half in this process: "
+        f"max |diff| {err:.3e}, {equal:.4f} of pixels equal (bit for bit "
+        f"expected)", flush=True)
+  if not torch.equal(got, halves):
+    fail("phase 7b: the served sharded artifact is not its shard program")
+  err, equal = compare_images(got, phase7["images"][b])
+  print(f"  (a) against phase 7's artifact at batch {b}: max |diff| "
+        f"{err:.3e} (tolerance {SERVE_ATOL}), {equal:.4f} of pixels equal",
+        flush=True)
+  if not err <= SERVE_ATOL:
+    fail(f"phase 7b: the sharded artifact differs from phase 7's by {err}")
+  for name, label in (("sharded", f"sharded, {n} x {rows} rows"),
+                      ("single_batch", f"phase 7's artifact at {b}"),
+                      ("single_chunk", f"phase 7's artifact at {rows}")):
+    ms = report["ms_windows"][name]
+    med = statistics.median(ms)
+    rows_served = rows if name == "single_chunk" else b
+    print(f"    {label}: {med:.3f} ms a request (median of "
+          f"{SERVE_WINDOWS} windows of {SERVE_STEPS}; windows "
+          f"{[round(v, 3) for v in ms]}), {rows_served / med * 1e3:.2f} "
+          f"images/s ({card})", flush=True)
+
+  # (b) The port's consumer: one copy of the program a device.
+  t0 = time.perf_counter()
+  served = serving.load_exported(sharded_path, devices=SHARDED_DEVICES)
+  load_s = time.perf_counter() - t0
+  host_x = [v.cpu() for v in x]
+  with torch.no_grad():
+    from_card, from_host = served(*x), served(*host_x)
+    ms = [time_ms(lambda: served(*x), SERVE_STEPS)
+          for _ in range(SERVE_WINDOWS)]
+  for label, images in (("inputs on the card", from_card),
+                        ("inputs on the host (pinned, non-blocking)",
+                         from_host)):
+    err, equal = compare_images(images, got)
+    print(f"  (b) load_exported(devices={list(SHARDED_DEVICES)}), "
+          f"{label}: against (a) max |diff| {err:.3e}, {equal:.4f} of "
+          f"pixels equal (bit for bit expected)", flush=True)
+    if not torch.equal(images, got):
+      fail(f"phase 7b: load_exported(devices=...) with {label} is not "
+           f"the torch-only process's serving")
+  print(f"    loaded in {load_s:.2f} s; {statistics.median(ms):.3f} ms a "
+        f"request (median of {SERVE_WINDOWS} windows of {SERVE_STEPS}, "
+        f"inputs on the card; windows {[round(v, 3) for v in ms]}) "
+        f"({card})", flush=True)
+  del served
+
+  # (c) An artifact traced on the host's CPU, served on the card.
+  t0 = time.perf_counter()
+  (cpu_path,) = serving.export_from_workdir(
+      config, workdir, device="cpu", out_dir=os.path.join(root, "cpu"))
+  export_s = time.perf_counter() - t0
+  with open(cpu_path[:-len(".pt2")] + ".json") as f:
+    platforms = json.load(f)["platforms"]
+  t0 = time.perf_counter()
+  module = serving.load_exported(cpu_path, device="cuda").module()
+  print(f"  (c) export_from_workdir(device='cpu') {export_s:.2f} s, "
+        f"{os.path.getsize(cpu_path)} bytes, sidecar platforms "
+        f"{platforms}; load_exported(device='cuda') "
+        f"{time.perf_counter() - t0:.2f} s", flush=True)
+  if platforms != ["cpu", "cuda"]:
+    fail(f"phase 7b: a CPU artifact's sidecar lists {platforms}")
+  for batch, xb in phase7["inputs"].items():
+    with torch.no_grad():
+      images = module(*xb)
+    err, equal = compare_images(images, phase7["images"][batch])
+    print(f"  (c) batch {batch}: the CPU-traced artifact on the card "
+          f"against phase 7's card-traced one: max |diff| {err:.3e} "
+          f"(tolerance {SERVE_ATOL}; bit for bit expected), {equal:.4f} "
+          f"of pixels equal", flush=True)
+    if not err <= SERVE_ATOL:
+      fail(f"phase 7b: batch {batch} of the CPU-traced artifact differs "
+           f"from the card-traced one by {err}")
+  del module
+
+  # (c) A card-traced artifact where no card is seen.
+  no_card_inputs = os.path.join(root, "no_card.pt")
+  torch.save(([v.cpu() for v in phase7["inputs"][1]],
+              phase7["images"][1].cpu()), no_card_inputs)
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+      [sys.executable, "-c", _NO_CARD_SCRIPT,
+       os.path.dirname(os.path.abspath(__file__)), phase7["bf16"],
+       no_card_inputs],
+      capture_output=True, text=True, timeout=600, cwd=root, check=False,
+      env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+  if proc.returncode != 0:
+    fail(f"phase 7b: the process without a card: {proc.stderr[-3000:]}")
+  found = json.loads(proc.stdout.strip().splitlines()[-1])
+  print(f"  (c) phase 7's card-traced artifact, load_exported(device="
+        f"'cpu') in a process with CUDA_VISIBLE_DEVICES='' "
+        f"({time.perf_counter() - t0:.2f} s): {json.dumps(found)}",
+        flush=True)
+  if found["cuda_available"]:
+    fail("phase 7b: the process without a card saw one")
+  if found["loaded"] != ("cpu" in serving.SERVES_ON["cuda"]):
+    fail(f"phase 7b: serving.SERVES_ON says a card-traced artifact "
+         f"serves on {serving.SERVES_ON['cuda']}, and it "
+         f"{'loaded' if found['loaded'] else 'did not load'} on the CPU")
 
 
 SHARDED_SHAPES = ((28, 56), (64, 128))   # images x captions a process
@@ -3315,7 +3608,10 @@ def main() -> None:
     timed("phase 5", check_resume, torch, dev)
     phase6 = timed("phase 6", evaluate_flagship, torch, card, workdir,
                    config, dev)
-    timed("phase 7", serve_flagship, torch, card, workdir, config, dev)
+    phase7 = timed("phase 7", serve_flagship, torch, card, workdir, config,
+                   dev)
+    timed("phase 7b", serve_sharded, torch, card, workdir, config, dev,
+          phase7)
     print("phase 8a: kernels B, C and D at the sharded dispatch's shapes "
           "(images x captions a process)", flush=True)
     timed("phase 8a", check_kernels_sharded, torch, records)

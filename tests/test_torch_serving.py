@@ -209,7 +209,7 @@ def test_metadata_matches_jax(batch_size, quantize):
   got = json.loads(serving.artifact_metadata(
       config, weights="ema", step=12, batch_size=batch_size, device="cpu",
       quantize=quantize))
-  assert got.pop("platforms") == ["cpu"]
+  assert got.pop("platforms") == ["cpu", "cuda"]
   want.pop("platforms")
   assert got == want
 
@@ -243,7 +243,8 @@ def test_export_mode_from_workdir(workdir):
   with open(base + ".json") as f:
     meta = json.load(f)
   assert meta["weights"] == "ema" and meta["step"] == 1
-  assert meta["platforms"] == ["cpu"] and meta["quantization"] == "none"
+  assert meta["platforms"] == ["cpu", "cuda"]
+  assert meta["quantization"] == "none"
   config = coco_xmc.get_test_config()
   x = [torch.from_numpy(v) for v in inputs(config, 3, seed=7)]
   got = torch.export.load(base + ".pt2").module()(*x)

@@ -6,7 +6,8 @@ set (EMA and/or normal), an ``ExportedProgram`` (``.pt2``) and a JSON
 sidecar describing its inputs and output.  A consumer runs it with
 ``torch.export.load(path).module()(sentence_embedding, embedding,
 max_len, z)`` and nothing but ``torch``, on the device it was exported
-for.  ``--mode=export`` of ``main`` does the same with the defaults; this
+for (``utils.serving.load_exported(path, device=...)`` moves it; a
+``--device=cpu`` export also serves on the card).  ``--mode=export`` of ``main`` does the same with the defaults; this
 form takes the configuration as a module of the port's ``configs``.
 
 Usage (defaults: EMA weights, symbolic batch dimension, the card)::

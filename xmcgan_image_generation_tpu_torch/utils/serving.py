@@ -13,26 +13,35 @@ serves any batch size.  ``torch.export.save`` writes it (``.pt2``), and a
 consumer runs it with ``torch.export.load(path).module()(*inputs)`` with
 nothing but ``torch``: no port, no checkpoint, no configuration.  The
 program is traced on the device the caller names (``cuda`` by default)
-and its weights live there; it serves on that device.
+and its weights live there; `load_exported` moves it to another device
+(JAX's multi-platform lowering: a CPU-traced artifact serves on the
+card).
+
+``export_generator(..., devices=[d0, .., dN-1])`` is the JAX package's
+``export_generator(mesh=...)``: one artifact whose single call serves a
+static batch B split over N devices, with the weights replicated.  It
+holds one program of B / N rows, its weights once, and records N and B
+in the file (`SHARDING_FILE`); ``load_exported(path, devices=...)`` puts
+a copy of the program on each of any N devices and returns a
+`ShardedGenerator`, which splits each input along the batch, runs the
+chunks and concatenates the images.  No process group is involved, as
+with JAX's one-controller call; a consumer with nothing but ``torch``
+does the same split by hand.
 
 `export_from_workdir` (``--mode=export``) runs in every process of a
 ``torchrun`` job: process 0 restores the checkpoint and writes the
 artifacts once, the others wait for it and return the same paths.  (The
 JAX package lets every process write the same files.)
-
-Not ported: the JAX package's ``export_generator(mesh=...)``, one
-artifact whose single call splits a batch over the consumer's devices.
-A ``torch.export`` program lives on one device and has no multi-device
-form, so that artifact waits for a design: one program per device behind
-a splitting wrapper, or a program with the collectives inside it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import io
 import json
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import (Any, Dict, List, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 from torch import nn
@@ -53,6 +62,17 @@ BERT_DIM = 768
 COCO_MAX_TEXT_LENGTH = 17
 
 INPUTS = ("sentence_embedding", "embedding", "max_len", "z")
+
+#: A sharded artifact's record of its placement, one of the ``.pt2``'s
+#: ``extra_files``: the mesh axis, its device count N and the global batch.
+SHARDING_FILE = "sharding.json"
+MESH_AXIS = "data"
+
+#: The device types an artifact traced on a device type was checked to
+#: serve on (``chip_smoke.py`` phase 7b): a CPU-traced program moved to
+#: the card serves there; a card-traced one does not load in a process
+#: that sees no card.
+SERVES_ON = {"cpu": ("cpu", "cuda"), "cuda": ("cuda",)}
 
 
 def load_config_module(spec: str):
@@ -205,15 +225,57 @@ class ServingGenerator(nn.Module):
     return images.float()
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedExport:
+  """A multi-device artifact before it is saved (JAX's ``Exported`` of
+  ``export_generator(mesh=...)``): ``program`` serves ``batch_size //
+  num_devices`` rows, and one call of the saved artifact serves
+  ``batch_size`` rows over ``num_devices`` devices."""
+  program: torch.export.ExportedProgram
+  num_devices: int
+  batch_size: int
+
+  def save(self, f) -> None:
+    """``torch.export.save`` of the program, with the placement recorded
+    in `SHARDING_FILE`."""
+    sharding = json.dumps({
+        "mesh_axis": MESH_AXIS, "num_devices": self.num_devices,
+        "batch_size": self.batch_size,
+        "shard_batch_size": self.batch_size // self.num_devices})
+    torch.export.save(self.program, f, extra_files={SHARDING_FILE: sharding})
+
+
 def export_generator(generator: nn.Module,
                      params: Optional[Mapping[str, Tensor]], config, *,
                      batch_size: Optional[int] = None,
-                     quantize: Optional[str] = None,
-                     device="cuda") -> torch.export.ExportedProgram:
+                     quantize: Optional[str] = None, device=None,
+                     devices: Optional[Sequence[Any]] = None
+                     ) -> Union[torch.export.ExportedProgram, ShardedExport]:
   """`ServingGenerator` of ``generator`` with ``params`` traced on
-  ``device`` by ``torch.export``; ``batch_size=None`` -> symbolic batch
-  (traced at 2, served at any size from 1)."""
-  device = check_device(device)
+  ``device`` (``cuda`` by default) by ``torch.export``; ``batch_size=None``
+  -> symbolic batch (traced at 2, served at any size from 1).
+
+  ``devices``, N devices (repeats allowed), stands for the JAX package's
+  ``mesh=`` with its ``data`` axis of N devices: ``batch_size`` must be
+  static and divisible by N.  G is traced once, at ``batch_size // N``
+  rows on ``devices[0]``, and a `ShardedExport` is returned."""
+  if devices is not None:
+    if device is not None:
+      raise ValueError("pass device or devices, not both")
+    if batch_size is None:
+      raise ValueError("sharded export requires a static batch_size")
+    n = len(devices)
+    if not n or batch_size % n:
+      raise ValueError(
+          f"batch_size {batch_size} not divisible by mesh axis "
+          f"{MESH_AXIS!r} ({n} devices)")
+    for d in devices:
+      check_device(d)
+    program = export_generator(generator, params, config,
+                               batch_size=batch_size // n,
+                               quantize=quantize, device=devices[0])
+    return ShardedExport(program, n, batch_size)
+  device = check_device("cuda" if device is None else device)
   module = ServingGenerator(config, generator, params,
                             quantize=quantize).to(device)
   example = make_init_batch(config, batch_size or 2, device)
@@ -230,13 +292,15 @@ def artifact_metadata(config, *, weights: str, step: Optional[int],
                       batch_size: Optional[int], device="cuda",
                       quantize: Optional[str] = None) -> str:
   """JSON sidecar describing the artifact's interface for consumers (the
-  JAX package's keys; ``platforms`` names the torch device)."""
+  JAX package's keys; ``platforms`` lists the torch device types the
+  artifact serves on, `SERVES_ON`, the traced one first)."""
   b: Any = batch_size if batch_size is not None else "b"
+  traced = torch.device(device).type
   return json.dumps(
       {
           "weights": weights,
           "step": step,
-          "platforms": [torch.device(device).type],
+          "platforms": list(SERVES_ON.get(traced, (traced,))),
           "quantization": quantize or "none",
           "image_size": config.image_size,
           "inputs": {
@@ -255,11 +319,89 @@ def artifact_metadata(config, *, weights: str, step: Optional[int],
       indent=2, sort_keys=True)
 
 
-def load_exported(path: str) -> torch.export.ExportedProgram:
-  """A saved artifact, local or on a store; call it as
-  ``load_exported(path).module()(*inputs)`` on the device it was exported
-  for."""
-  return torch.export.load(io.BytesIO(fileio.read_bytes(path)))
+def _move_program(program: torch.export.ExportedProgram, device
+                 ) -> torch.export.ExportedProgram:
+  """``program`` (changed in place) with its weights, buffers, constants
+  and the devices named in its graph on ``device``.  Everything moves to
+  the one device: ``move_to_device_pass``'s map form would leave a graph
+  argument ``cuda`` behind when its key reads ``cuda:0``."""
+  from torch.export.passes import move_to_device_pass
+
+  return move_to_device_pass(program, str(check_device(device)))
+
+
+class ShardedGenerator:
+  """A sharded artifact served over N devices, one copy of its program a
+  device (devices that repeat share theirs).  A call splits each of the
+  four inputs of the global batch along dim 0 into N equal chunks, moves
+  chunk i to ``devices[i]`` (from pinned memory where it is on the host),
+  runs it there and concatenates the images on ``devices[0]``.  The JAX
+  package's call returns an array sharded over the mesh instead."""
+
+  def __init__(self, programs: Mapping[torch.device,
+                                       torch.export.ExportedProgram],
+               devices: Sequence[torch.device], batch_size: int):
+    self.devices = list(devices)
+    self.batch_size = batch_size
+    self.modules = {d: p.module() for d, p in programs.items()}
+
+  def __call__(self, *inputs: Tensor) -> Tensor:
+    if len(inputs) != len(INPUTS):
+      raise ValueError(f"expected the inputs {INPUTS}, got {len(inputs)}")
+    for name, x in zip(INPUTS, inputs):
+      if x.shape[0] != self.batch_size:
+        raise ValueError(f"{name}: the artifact serves a batch of "
+                         f"{self.batch_size}, got {x.shape[0]}")
+    rows = self.batch_size // len(self.devices)
+    images = []
+    for i, device in enumerate(self.devices):
+      chunk = (_place(x.narrow(0, i * rows, rows), device) for x in inputs)
+      images.append(self.modules[device](*chunk))
+    return torch.cat([x.to(self.devices[0]) for x in images])
+
+
+def _place(x: Tensor, device: torch.device) -> Tensor:
+  if x.device.type == "cpu" and device.type == "cuda":
+    return (x if x.is_pinned() else x.pin_memory()).to(device,
+                                                        non_blocking=True)
+  return x.to(device)
+
+
+def load_exported(path: str, device=None, *,
+                  devices: Optional[Sequence[Any]] = None
+                  ) -> Union[torch.export.ExportedProgram, ShardedGenerator]:
+  """A saved artifact, local or on a store.
+
+  ``device=None`` keeps the program where it was traced; a device moves
+  it there (`_move_program`).  Call the result as
+  ``.module()(*inputs)``.  Without ``devices`` a sharded artifact loads
+  as its program of the shard's rows.
+
+  ``devices``, for a sharded artifact, are as many devices as it was
+  exported over (any of them, as JAX's ``in_shardings_jax(mesh)`` takes
+  any mesh of that size): returns a `ShardedGenerator` of the artifact's
+  global batch."""
+  data = fileio.read_bytes(path)
+  extra = {SHARDING_FILE: ""}
+  program = torch.export.load(io.BytesIO(data), extra_files=extra)
+  if devices is None:
+    return program if device is None else _move_program(program, device)
+  if device is not None:
+    raise ValueError("pass device or devices, not both")
+  if not extra[SHARDING_FILE]:
+    raise ValueError(f"{path} is not a sharded artifact")
+  sharding = json.loads(extra[SHARDING_FILE])
+  if len(devices) != sharding["num_devices"]:
+    raise ValueError(
+        f"{path} is sharded over {sharding['num_devices']} devices, got "
+        f"{len(devices)}")
+  devices = [check_device(d) for d in devices]
+  programs = {}
+  for d in dict.fromkeys(devices):
+    if programs:   # one more copy, from the bytes already read
+      program = torch.export.load(io.BytesIO(data))
+    programs[d] = _move_program(program, d)
+  return ShardedGenerator(programs, devices, sharding["batch_size"])
 
 
 def export_from_workdir(config, workdir: str, *, step: Optional[int] = None,
