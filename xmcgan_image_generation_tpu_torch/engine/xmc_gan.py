@@ -29,6 +29,12 @@ summed over processes (`collectives.all_reduce_grads`, one flat-bucket
 ``all_reduce`` a bucket) once per update, after the microbatches.
 ``DistributedDataParallel`` is not used: its reducer hooks
 ``.backward()``, and the updates take ``torch.autograd.grad``.
+
+Each update is a `utils.tracing` span (``d_update``, ``gd_update``) over
+the leaves ``forward`` and ``backward`` (once a microbatch),
+``reduce_grads`` (each microbatch's float32 sum, then the mean and the
+sum over processes), ``adam`` (each apply) and ``ema``; they record only
+while a profiler capture runs.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from xmcgan_image_generation_tpu_torch.ops.images import image_to_float
 from xmcgan_image_generation_tpu_torch.ops.normalization import frozen_state
 from xmcgan_image_generation_tpu_torch.parallel import collectives
 from xmcgan_image_generation_tpu_torch.utils import pretrained
+from xmcgan_image_generation_tpu_torch.utils import tracing
 
 Batch = Dict[str, torch.Tensor]
 
@@ -100,10 +107,11 @@ def _grads(loss: torch.Tensor, params, retain_graph: bool = False):
 
 
 def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
-  for p, g in zip(params, grads):
-    p.grad = g
-  opt.step()
-  opt.zero_grad(set_to_none=True)
+  with tracing.span("adam"):
+    for p, g in zip(params, grads):
+      p.grad = g
+    opt.step()
+    opt.zero_grad(set_to_none=True)
 
 
 def _global_logits(logit: torch.Tensor):
@@ -127,27 +135,31 @@ def _accumulated(fn, batch: Batch, config):
   k = int(config.get("grad_accum_steps", 1))
   if k <= 1:
     grads, losses = fn(local_rows(batch))
-    return tuple(collectives.all_reduce_grads(g) for g in grads), losses
+    with tracing.span("reduce_grads"):
+      return tuple(collectives.all_reduce_grads(g) for g in grads), losses
   micro = stack_microbatches(batch, k)
   grad_sums = loss_sums = None
   for i in range(k):
     grads, losses = fn(local_rows({name: x[i]
                                    for name, x in micro.items()}))
-    if grad_sums is None:
-      # Fresh float32 sums: two parameters may be handed one gradient.
-      grad_sums = tuple([g.to(torch.float32, copy=True) for g in part]
-                        for part in grads)
-      loss_sums = losses
-    else:
-      for sums, part in zip(grad_sums, grads):
-        for total, g in zip(sums, part):
-          total.add_(g)
-      loss_sums = {name: v + losses[name] for name, v in loss_sums.items()}
-  for sums in grad_sums:
-    for total in sums:
-      total.div_(k)
-  return (tuple(collectives.all_reduce_grads(g) for g in grad_sums),
-          {name: v / k for name, v in loss_sums.items()})
+    with tracing.span("reduce_grads"):
+      if grad_sums is None:
+        # Fresh float32 sums: two parameters may be handed one gradient.
+        grad_sums = tuple([g.to(torch.float32, copy=True) for g in part]
+                          for part in grads)
+        loss_sums = losses
+      else:
+        for sums, part in zip(grad_sums, grads):
+          for total, g in zip(sums, part):
+            total.add_(g)
+        loss_sums = {name: v + losses[name]
+                     for name, v in loss_sums.items()}
+  with tracing.span("reduce_grads"):
+    for sums in grad_sums:
+      for total in sums:
+        total.div_(k)
+    return (tuple(collectives.all_reduce_grads(g) for g in grad_sums),
+            {name: v / k for name, v in loss_sums.items()})
 
 
 def _joint_grads(state: TrainState, batch: Batch, config,
@@ -155,21 +167,23 @@ def _joint_grads(state: TrainState, batch: Batch, config,
   """``((d_grads, g_grads), losses)`` of the joint update on one
   (micro)batch: one G and one D forward, two pulls."""
   g_net, d_net = state.generator, state.discriminator
-  real_image = image_to_float(batch["image"])
-  fake_image = g_net(batch, _noise(batch, g_net.dtype))
-  all_images = torch.cat([real_image, fake_image.float()])
-  logit, stats = d_net(all_images, batch)
-  real_logit, fake_logit = _global_logits(logit)
-  c_loss_d, c_loss_g = contrastive_totals(stats)
-  c_loss_g_pretrained = torch.zeros((), device=logit.device)
-  if config.pretrained_image_contrastive:
-    c_loss_g_pretrained = pretrained_contrastive(
-        additional_data, real_image, fake_image)
-  d_loss = losses.hinge_d(real_logit, fake_logit) + c_loss_d
-  g_loss = losses.hinge_g(fake_logit) + c_loss_g + c_loss_g_pretrained
+  with tracing.span("forward"):
+    real_image = image_to_float(batch["image"])
+    fake_image = g_net(batch, _noise(batch, g_net.dtype))
+    all_images = torch.cat([real_image, fake_image.float()])
+    logit, stats = d_net(all_images, batch)
+    real_logit, fake_logit = _global_logits(logit)
+    c_loss_d, c_loss_g = contrastive_totals(stats)
+    c_loss_g_pretrained = torch.zeros((), device=logit.device)
+    if config.pretrained_image_contrastive:
+      c_loss_g_pretrained = pretrained_contrastive(
+          additional_data, real_image, fake_image)
+    d_loss = losses.hinge_d(real_logit, fake_logit) + c_loss_d
+    g_loss = losses.hinge_g(fake_logit) + c_loss_g + c_loss_g_pretrained
 
-  d_grads = _grads(d_loss, list(d_net.parameters()), retain_graph=True)
-  g_grads = _grads(g_loss, list(g_net.parameters()))
+  with tracing.span("backward"):
+    d_grads = _grads(d_loss, list(d_net.parameters()), retain_graph=True)
+    g_grads = _grads(g_loss, list(g_net.parameters()))
   return (d_grads, g_grads), dict(
       d_loss=d_loss.detach(), g_loss=g_loss.detach(),
       c_loss_d=c_loss_d.detach(), c_loss_g=c_loss_g.detach(),
@@ -183,19 +197,20 @@ def train_g_d(state: TrainState, batch: Batch, config,
   place and returns the five losses (means over the microbatches)."""
   additional_data = additional_data or {}
   g_net, d_net = state.generator, state.discriminator
-  g_net.train()
-  d_net.train()
-  (d_grads, g_grads), loss_values = _accumulated(
-      lambda mb: _joint_grads(state, mb, config, additional_data), batch,
-      config)
-  _apply(state.d_opt, list(d_net.parameters()), d_grads)
-  _apply(state.g_opt, list(g_net.parameters()), g_grads)
+  with tracing.span("gd_update"):
+    g_net.train()
+    d_net.train()
+    (d_grads, g_grads), loss_values = _accumulated(
+        lambda mb: _joint_grads(state, mb, config, additional_data), batch,
+        config)
+    _apply(state.d_opt, list(d_net.parameters()), d_grads)
+    _apply(state.g_opt, list(g_net.parameters()), g_grads)
 
-  decay = config.polyak_decay
-  with torch.no_grad():
-    for name, p in g_net.named_parameters():
-      ema = state.ema_params[name]
-      ema.mul_(decay).add_(p, alpha=1.0 - decay)
+    decay = config.polyak_decay
+    with tracing.span("ema"), torch.no_grad():
+      for name, p in g_net.named_parameters():
+        ema = state.ema_params[name]
+        ema.mul_(decay).add_(p, alpha=1.0 - decay)
   state.step += 1
   return loss_values
 
@@ -203,15 +218,17 @@ def train_g_d(state: TrainState, batch: Batch, config,
 def _critic_grads(state: TrainState, batch: Batch):
   """``((d_grads,), {})`` of the critic update on one (micro)batch."""
   g_net, d_net = state.generator, state.discriminator
-  with torch.no_grad(), frozen_state(g_net):
-    fake_image = g_net(batch, _noise(batch, g_net.dtype))
-  all_images = torch.cat([image_to_float(batch["image"]),
-                          fake_image.float()])
-  logit, stats = d_net(all_images, batch, critic_only=True)
-  real_logit, fake_logit = _global_logits(logit)
-  c_loss_d, _ = contrastive_totals(stats)
-  d_loss = losses.hinge_d(real_logit, fake_logit) + c_loss_d
-  return (_grads(d_loss, list(d_net.parameters())),), {}
+  with tracing.span("forward"):
+    with torch.no_grad(), frozen_state(g_net):
+      fake_image = g_net(batch, _noise(batch, g_net.dtype))
+    all_images = torch.cat([image_to_float(batch["image"]),
+                            fake_image.float()])
+    logit, stats = d_net(all_images, batch, critic_only=True)
+    real_logit, fake_logit = _global_logits(logit)
+    c_loss_d, _ = contrastive_totals(stats)
+    d_loss = losses.hinge_d(real_logit, fake_logit) + c_loss_d
+  with tracing.span("backward"):
+    return (_grads(d_loss, list(d_net.parameters())),), {}
 
 
 def train_d(state: TrainState, batch: Batch, config) -> None:
@@ -222,8 +239,9 @@ def train_d(state: TrainState, batch: Batch, config) -> None:
   microbatch, as the JAX critic step discards G's new collections; D's
   spectral-norm state advances.
   """
-  state.generator.train()
-  state.discriminator.train()
-  (d_grads,), _ = _accumulated(lambda mb: _critic_grads(state, mb), batch,
-                               config)
-  _apply(state.d_opt, list(state.discriminator.parameters()), d_grads)
+  with tracing.span("d_update"):
+    state.generator.train()
+    state.discriminator.train()
+    (d_grads,), _ = _accumulated(lambda mb: _critic_grads(state, mb),
+                                 batch, config)
+    _apply(state.d_opt, list(state.discriminator.parameters()), d_grads)

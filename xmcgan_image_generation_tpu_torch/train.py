@@ -23,7 +23,9 @@ losses, ``seconds`` and ``data_seconds``, with ``g_lr`` and ``d_lr`` when
 the learning rate is scheduled; every ``min(100, log_loss_every_steps)``
 steps a line holds ``steps_per_sec`` and ``perf/images_per_sec``
 (`ReportProgress`); a fresh run writes ``hparams.json``; ``profile=True``
-captures steps 10-15 with ``torch.profiler`` (`Profile`).  ``seconds`` is
+captures steps 10-15 with ``torch.profiler`` (`Profile`), whose trace
+shows each step and its phases (`utils.tracing`'s spans, which
+`timed_step` and the update rules open).  ``seconds`` is
 a step's wall time on the host clock from asking for the super-batch to
 the step's end, and ``data_seconds``, within it, the time blocked waiting
 for the super-batch: the input stall, as the JAX package's
@@ -76,6 +78,7 @@ from xmcgan_image_generation_tpu_torch.parallel import collectives
 from xmcgan_image_generation_tpu_torch.parallel import context
 from xmcgan_image_generation_tpu_torch.parallel.mesh import MeshRules
 from xmcgan_image_generation_tpu_torch.utils import fileio
+from xmcgan_image_generation_tpu_torch.utils import tracing
 from xmcgan_image_generation_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     checkpoints_dir,
@@ -131,9 +134,12 @@ def timed_step(run: Run, config, device: torch.device, sync: bool = True
   seconds of those spent blocked waiting for the batch, and the batch."""
   state, additional_data, batches = run
   start = time.perf_counter()
-  batch = next(batches)
-  data_seconds = time.perf_counter() - start
-  _, metrics = train_step(state, batch, config, additional_data)
+  with tracing.span("step", step=state.step + 1):
+    with tracing.span("data.wait"):
+      wait = time.perf_counter()
+      batch = next(batches)
+      data_seconds = time.perf_counter() - wait
+    _, metrics = train_step(state, batch, config, additional_data)
   if sync and device.type == "cuda":
     torch.cuda.synchronize(device)
   seconds = time.perf_counter() - start
