@@ -23,6 +23,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 3c. holds kernels A (forward and backward), B and C against their plain
    versions at the 256 px path's microbatch (I = C = 128; A's variant for
    B > 64), times them and states their bounds;
+3d. holds the four modulated-norm kernels (family E: ``modnorm_stats``,
+   ``modnorm_apply``, ``modnorm_bwd_reduce``, ``modnorm_bwd_dx``) against
+   their plain stages on the same inputs at every norm shape of G in both
+   configurations (bfloat16; float32 at 128 px's): the output and the
+   statistics bit for bit given the same sums, the sums to float32
+   order, the backward within a bf16 rounding, two launches bit for bit;
+   times each kernel and plain stage at each configuration's largest
+   norm and states its bytes bound.  Every training phase below zeroes
+   the family's counters with A-C's and checks that each forward kernel
+   launched as often as the other and each backward kernel too (in
+   phases 4, 4b, 4c, 8b and 12 exactly as often as G's norms run);
 4. trains the flagship configuration (128 px, 2 x 56 super-batch,
    bfloat16, every contrastive head and the ResNet-50 tower) for a few
    outer steps through ``train.train`` on the synthetic source, through
@@ -211,6 +222,28 @@ SERVE_ATOL = 2.0 ** -5
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12,
                   "tf32x3": 495e12 / 3}
+
+# (rows, channels, side, factor, or None for the dense terms alone) of
+# every modulated norm of G, as tests/test_torch_kernels.py lists them:
+# 128 px at 56 rows (GenBlock_0/1's ConditionalBatchNorms, the spatial
+# blocks' and the final FusedSpatialModulations at factors 1-8), 256 px at
+# the microbatch of 128 (factors 1-16).
+NORM_SHAPES_128 = [
+    (56, 1536, 4, None), (56, 1536, 8, None), (56, 768, 16, None),
+    (56, 768, 16, 1), (56, 384, 32, 2), (56, 192, 64, 4), (56, 96, 128, 8),
+]
+NORM_SHAPES_256 = [
+    (128, 1536, 4, None), (128, 1536, 8, None), (128, 768, 16, None),
+    (128, 768, 16, 1), (128, 768, 32, 2), (128, 384, 64, 4),
+    (128, 192, 128, 8), (128, 96, 256, 16),
+]
+MODNORM = ("modnorm_stats", "modnorm_apply", "modnorm_bwd_reduce",
+           "modnorm_bwd_dx")
+# Launches of each forward and each backward modulated-norm kernel in an
+# outer step, a microbatch: G's norms in the critic's and the joint
+# update's forward passes (with those remat recomputes: 2 at 256 px) and
+# in the joint update's backward (11 norms at 128 px, 13 at 256 px).
+NORM_LAUNCHES = {"flagship_128": (22, 11), "coco_xmc_256": (28, 13)}
 
 
 def fail(msg: str) -> None:
@@ -584,6 +617,207 @@ def check_kernels(torch, records):
   records["word_scores_dwn"]["launches"] = launches["word_scores_dwn"]
 
 
+def norm_counters():
+  """Family E's launch counters (``ops/cuda/modulated_norm.py``) by
+  kernel name."""
+  from xmcgan_image_generation_tpu_torch.ops.cuda import modulated_norm as mn
+
+  return dict(zip(MODNORM, (mn.norm_stats, mn.norm_apply,
+                            mn.norm_bwd_reduce, mn.norm_bwd_dx)))
+
+
+def check_norm_launches(label, launches, per_step=None, steps=None):
+  """Family E's launches in a training phase (``launches`` by kernel name,
+  others ignored): each forward kernel as often as the other, each
+  backward kernel too, the backward at all; with ``per_step`` (forward,
+  backward) exactly that times ``steps``."""
+  got = {name: launches[name] for name in MODNORM}
+  line = f"  {label}: modulated-norm launches {json.dumps(got)}"
+  want = None
+  if per_step is not None:
+    want = (per_step[0] * steps, per_step[1] * steps)
+    line += (f" (expected {per_step[0]} each forward and {per_step[1]} each "
+             f"backward kernel a step x {steps} steps)")
+  print(line, flush=True)
+  forward = got["modnorm_stats"], got["modnorm_apply"]
+  backward = got["modnorm_bwd_reduce"], got["modnorm_bwd_dx"]
+  if (forward[0] != forward[1] or backward[0] != backward[1]
+      or backward[0] <= 0
+      or (want is not None and (forward[0], backward[0]) != want)):
+    fail(f"{label}: the modulated-norm kernels launched {got}")
+
+
+def norm_bytes(shape, esize):
+  """Bytes each modulated-norm kernel reads and writes once at ``shape``:
+  x (and the cotangent), the output or dx, the modulation terms (and
+  their gradients), the [2, C] sums and the [C] statistics.  The
+  partial sums between a channel's blocks stay in L2 and are left out."""
+  n, c, side, factor = shape
+  x = n * c * side * side * esize
+  terms = 2 * n * c * esize
+  if factor is not None:
+    terms += 2 * n * c * (side // factor) ** 2 * esize
+  small = 8 * c
+  return {"modnorm_stats": x + small,
+          "modnorm_apply": 2 * x + terms + 2 * small,
+          "modnorm_bwd_reduce": 2 * x + 2 * terms + 2 * small,
+          "modnorm_bwd_dx": 3 * x + terms + 2 * small}
+
+
+# float32 operations an element (subtractions, products, sums, the
+# ReLU's compare), to show that the bytes bound the kernels.
+NORM_OPS = {"modnorm_stats": 3, "modnorm_apply": 8,
+            "modnorm_bwd_reduce": 14, "modnorm_bwd_dx": 12}
+
+
+def norm_inputs(torch, shape, dtype, seed):
+  """x, the modulation terms and a cotangent as G's layers give them: x
+  with channels of different means and scales and one constant channel
+  (its variance at or near 0, where y amplifies the sums' last bits
+  316-fold)."""
+  n, c, side, factor = shape
+  dev = torch.device("cuda")
+  gen = torch.Generator(device=dev).manual_seed(seed)
+
+  def normal(*s, scale=1.0):
+    return scale * torch.randn(*s, device=dev, generator=gen)
+
+  x = (normal(n, c, side, side) * (0.5 + normal(c).abs())[:, None, None]
+       + normal(c)[:, None, None])
+  x[:, 0] = 0.37
+  local = None if factor is None else (n, c, side // factor, side // factor)
+  terms = [None if local is None else normal(*local, scale=0.3),
+           normal(n, c, scale=0.3),
+           None if local is None else normal(*local, scale=0.3),
+           normal(n, c, scale=0.3)]
+  dout = normal(n, c, side, side)
+  return (x.to(dtype), [t if t is None else t.to(dtype) for t in terms],
+          dout.to(dtype))
+
+
+def check_modnorm(torch, records):
+  """Phase 3d: family E against its plain stages at every norm shape of
+  both configurations, each kernel timed beside its plain stage at each
+  configuration's largest norm."""
+  from xmcgan_image_generation_tpu_torch.ops.cuda import modulated_norm as mn
+
+  # No TPU kernel: XLA fused G's BatchNorm, modulation and ReLU.
+  for name in MODNORM:
+    records[name] = {"name": name, "route": "cuda",
+                     "source": "xmcgan_image_generation_tpu_torch/csrc/"
+                               "modulated_norm.cu",
+                     "replaces": "xmcgan_image_generation_tpu/ops/"
+                                 "normalization.py:106 (XLA fusion)",
+                     "library_ms": None}
+  worst = {name: 0.0 for name in MODNORM}
+
+  def check(name, what, err, tol):
+    if err > tol:
+      fail(f"phase 3d: {name} {what}: {err:.3e} beyond {tol:.1e}")
+    worst[name] = max(worst[name], err / tol if tol else 0.0)
+
+  cases = ([(s, torch.bfloat16) for s in NORM_SHAPES_128 + NORM_SHAPES_256]
+           + [(s, torch.float32) for s in NORM_SHAPES_128])
+  for index, (shape, dtype) in enumerate(cases):
+    factor = shape[3] or 1
+    x, terms, dout = norm_inputs(torch, shape, dtype, index)
+    count = x.numel() // x.shape[1]
+    sums = mn.norm_stats(x)
+    want = mn.stats_plain(x)
+    if not torch.equal(sums, mn.norm_stats(x)):
+      fail(f"phase 3d: two modnorm_stats launches differ at {shape}")
+    # f32 sums of up to 8.4 M values in other orders.
+    bound = 1e-5 * torch.stack([x.float().abs().sum((0, 2, 3)),
+                                x.float().square().sum((0, 2, 3))]) + 1e-6
+    check("modnorm_stats", f"sums at {shape}",
+          float(((sums - want).abs() / bound).max()), 1.0)
+    # Given the plain sums: the output and the statistics bit for bit.
+    for relu in (True, False):
+      got = mn.norm_apply(x, want, count, *terms, factor, relu)
+      again = mn.norm_apply(x, want, count, *terms, factor, relu)
+      plain = mn.apply_plain(x, want, count, *terms, factor, relu)
+      for g, a, p in zip(got, again, plain):
+        if not (torch.equal(g, a) and torch.equal(g, p)):
+          fail(f"phase 3d: modnorm_apply at {shape}, {dtype}, relu={relu}: "
+               f"max |kernel - plain| {float((g - p).abs().max()):.3e}, "
+               f"not bit for bit")
+    got = mn.norm_bwd_reduce(x, dout, want, count, *terms, factor, True)
+    again = mn.norm_bwd_reduce(x, dout, want, count, *terms, factor, True)
+    plain = mn.bwd_reduce_plain(x, dout, want, count, *terms, factor, True)
+    for g, a in zip(got, again):
+      if g is not None and not torch.equal(g, a):
+        fail(f"phase 3d: two modnorm_bwd_reduce launches differ at {shape}")
+    # The channel sums: f32 sums of up to 8.4 M products in other orders.
+    check("modnorm_bwd_reduce", f"channel sums at {shape}",
+          float((got[0] - plain[0]).abs().max()),
+          1e-4 * float(plain[0].abs().max()))
+    # The terms' gradients: sums of up to 16,384 products a term the two
+    # sides take in other orders, rounded once to x's type.
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for g, p in zip(got[1:], plain[1:]):
+      if p is not None:
+        scale = float(p.float().abs().max())
+        check("modnorm_bwd_reduce", f"terms' gradients at {shape}",
+              float(((g.float() - p.float()).abs()
+                     / (tol * p.float().abs() + tol * scale)).max()), 1.0)
+    dx = mn.norm_bwd_dx(x, dout, want, got[0], count, *terms, factor, True)
+    if not torch.equal(dx, mn.norm_bwd_dx(x, dout, want, got[0], count,
+                                          *terms, factor, True)):
+      fail(f"phase 3d: two modnorm_bwd_dx launches differ at {shape}")
+    p = mn.bwd_dx_plain(x, dout, want, got[0], count, *terms, factor,
+                        True).float()
+    check("modnorm_bwd_dx", f"dx at {shape}",
+          float(((dx.float() - p).abs()
+                 / (tol * p.abs() + tol * float(p.abs().max()))).max()), 1.0)
+    print(f"  {tuple(shape)} {str(dtype)[6:]}: sums, output bit for bit, "
+          f"backward ok", flush=True)
+    del x, terms, dout, got, again, plain, dx, p
+  for name in MODNORM:
+    records[name]["max_err_over_tolerance"] = worst[name]
+  print(f"  worst |kernel - plain| / tolerance: {json.dumps(worst)} (the "
+        f"forward's output and statistics bit for bit)", flush=True)
+
+  # Timed at each configuration's largest norm, bf16, with the ReLU.
+  for key, shape in ((None, NORM_SHAPES_128[-1]),
+                     ("at_batch_128", NORM_SHAPES_256[-1])):
+    factor = shape[3]
+    x, terms, dout = norm_inputs(torch, shape, torch.bfloat16, 99)
+    count = x.numel() // x.shape[1]
+    sums = mn.stats_plain(x)
+    gsums = mn.norm_bwd_reduce(x, dout, sums, count, *terms, factor,
+                               True)[0]
+    args = (x, sums, count, *terms, factor, True)
+    bargs = (x, dout, sums, count, *terms, factor, True)
+    calls = {
+        "modnorm_stats": (lambda: mn.norm_stats(x),
+                          lambda: mn.stats_plain(x)),
+        "modnorm_apply": (lambda: mn.norm_apply(*args),
+                          lambda: mn.apply_plain(*args)),
+        "modnorm_bwd_reduce": (lambda: mn.norm_bwd_reduce(*bargs),
+                               lambda: mn.bwd_reduce_plain(*bargs)),
+        "modnorm_bwd_dx": (
+            lambda: mn.norm_bwd_dx(x, dout, sums, gsums, count, *terms,
+                                   factor, True),
+            lambda: mn.bwd_dx_plain(x, dout, sums, gsums, count, *terms,
+                                    factor, True)),
+    }
+    nbytes = norm_bytes(shape, 2)
+    for name, (kernel, plain) in calls.items():
+      rec = {"ms": time_ms(kernel), "plain_ms": time_ms(plain)}
+      set_bound(rec, nbytes[name], NORM_OPS[name] * x.numel(), "float32")
+      rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+      if key is None:
+        records[name].update(rec)
+      else:
+        records[name][key] = dict(rec, library_ms=None)
+      print(f"  {name} at {shape}: kernel {rec['ms']:.4f} ms, plain stage "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}: {nbytes[name]} bytes), "
+            f"{rec['bound_share'] * 100:.1f} % of it", flush=True)
+    del x, terms, dout, sums, gsums, args, bargs, calls
+  torch.cuda.empty_cache()
+
+
 def check_small_step(torch):
   """Phase 3b: one outer step at the test config (32 px, float32) with the
   kernels and with the einsum heads, from the same seed: the losses must
@@ -592,13 +826,18 @@ def check_small_step(torch):
   from xmcgan_image_generation_tpu_torch.configs import coco_xmc
 
   losses = {}
+  norms = norm_counters()
   for use_pallas in (True, False):
     config = coco_xmc.get_test_config()
     config.update(dtype="float32", scale_fused_convs=True, num_train_steps=1,
                   use_pallas=use_pallas, batch_size=8)
+    for fn in norms.values():
+      fn.launches = 0
     with tempfile.TemporaryDirectory() as workdir:
       train_lib.train(config, workdir, torch.device("cuda"))
       losses[use_pallas] = loss_lines(workdir)[0]
+    check_norm_launches(f"phase 3b, use_pallas={use_pallas}",
+                        {n: fn.launches for n, fn in norms.items()})
   worst = 0.0
   for key in ("d_loss", "g_loss", "c_loss_d", "c_loss_g"):
     got, want = losses[True][key], losses[False][key]
@@ -747,6 +986,7 @@ def train_256(torch, records, card, flagship_steps):
 
   counters = {"ntxent": ntxent.ntxent_stats, "ntxent_bwd": ntxent.ntxent_bwd,
               "word_scores_fwd": ws.scores, "word_scores_drn": ws.drn}
+  norms = norm_counters()
   for k in (2, 4):
     config = config_256(k)
     images_per_step = config.batch_size * config.d_step_per_g_step
@@ -763,7 +1003,7 @@ def train_256(torch, records, card, flagship_steps):
     with tempfile.TemporaryDirectory() as workdir:
       torch.cuda.synchronize()
       torch.cuda.reset_peak_memory_stats()
-      for fn in counters.values():
+      for fn in (*counters.values(), *norms.values()):
         fn.launches = 0
       try:
         train_lib.train(config, workdir, torch.device("cuda"))
@@ -771,6 +1011,7 @@ def train_256(torch, records, card, flagship_steps):
         oom = str(e).splitlines()[0]
       if oom is None:
         launches = {name: fn.launches for name, fn in counters.items()}
+        norm_launches = {name: fn.launches for name, fn in norms.items()}
         peak = torch.cuda.max_memory_allocated()
         lines = loss_lines(workdir)
         with open(os.path.join(workdir, "checkpoints.jsonl")) as f:
@@ -800,6 +1041,11 @@ def train_256(torch, records, card, flagship_steps):
           f"{config.num_train_steps} steps = {want:g})", flush=True)
     if count != want:
       fail(f"256 px: kernel {name} launched {count} times, expected {want}")
+    records[name]["launches_by_path"]["coco_xmc_256"] = count
+  forward, backward = NORM_LAUNCHES["coco_xmc_256"]
+  check_norm_launches("phase 4c", norm_launches,
+                      (forward * k, backward * k), config.num_train_steps)
+  for name, count in norm_launches.items():
     records[name]["launches_by_path"]["coco_xmc_256"] = count
   step_summary(lines, images_per_step, card)
   print(f"  peak device memory: {peak / 2**30:.3f} GiB "
@@ -940,7 +1186,8 @@ def train_flagship(torch, records, card, workdir, config):
   # Training never differentiates the word features (BERT inputs), so
   # kernel D is not on this path: its launches come from phase 3.
   counters = {"ntxent": ntxent.ntxent_stats, "ntxent_bwd": ntxent.ntxent_bwd,
-              "word_scores_fwd": ws.scores, "word_scores_drn": ws.drn}
+              "word_scores_fwd": ws.scores, "word_scores_drn": ws.drn,
+              **norm_counters()}
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   for fn in counters.values():
@@ -966,6 +1213,8 @@ def train_flagship(torch, records, card, workdir, config):
           f"{records[name]['launches']}")
     if records[name]["launches"] <= 0:
       fail(f"kernel {name} was not launched by the training steps")
+  check_norm_launches("phase 4", {n: records[n]["launches"] for n in MODNORM},
+                      NORM_LAUNCHES["flagship_128"], config.num_train_steps)
   step_summary(lines, images_per_step, card)
   print(f"  peak device memory: {peak / 2**30:.3f} GiB "
         f"(torch.cuda.max_memory_allocated)", flush=True)
@@ -1139,7 +1388,8 @@ def train_from_records(torch, card, config, label, workdir):
         f"{(read + decode + prep) * images_per_step / 1e3:.2f} core-seconds "
         f"a super-batch of {images_per_step})", flush=True)
   counters = {"ntxent": ntxent.ntxent_stats, "ntxent_bwd": ntxent.ntxent_bwd,
-              "word_scores_fwd": ws.scores, "word_scores_drn": ws.drn}
+              "word_scores_fwd": ws.scores, "word_scores_drn": ws.drn,
+              **norm_counters()}
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   for fn in counters.values():
@@ -1160,6 +1410,8 @@ def train_from_records(torch, card, config, label, workdir):
   for name, count in launches.items():
     if count <= 0:
       fail(f"{label}: kernel {name} was not launched by the training steps")
+  check_norm_launches(label, launches, NORM_LAUNCHES["flagship_128"],
+                      config.num_train_steps)
   step_summary(lines, images_per_step, card)
   print(f"  peak device memory: {peak / 2**30:.3f} GiB "
         f"(torch.cuda.max_memory_allocated)", flush=True)
@@ -1929,7 +2181,7 @@ def ddp_step(torch, config, host_batch, dev):
   batch = {k: torch.from_numpy(v).to(dev) for k, v in host_batch.items()}
   counters = {"ntxent": ntxent.ntxent_stats, "ntxent_bwd": ntxent.ntxent_bwd,
               "word_scores_fwd": ws.scores, "word_scores_drn": ws.drn,
-              "word_scores_dwn": ws.dwn}
+              "word_scores_dwn": ws.dwn, **norm_counters()}
   torch.cuda.synchronize()
   for fn in counters.values():
     fn.launches = 0
@@ -2171,6 +2423,7 @@ def check_nccl_world1(torch):
         f"without a group {worst:.3e} (tolerance 1e-4)", flush=True)
   if worst > 1e-4 or not calls or launches["word_scores_fwd"] <= 0:
     fail("the NCCL world-1 step disagrees or ran no collective or kernel")
+  check_norm_launches("phase 8c", launches)
 
 
 def ddp_phase(torch, card, records):
@@ -2253,6 +2506,14 @@ def ddp_phase(torch, card, records):
     if min(res["sharded_launches"].values()) <= 0:
       fail(f"rank {res['rank']}: the sharded op launched "
            f"{res['sharded_launches']}")
+  check_norm_launches("phase 8b, world 1", launches1,
+                      NORM_LAUNCHES["flagship_128"], 1)
+  for res in results:
+    check_norm_launches(f"phase 8b, rank {res['rank']}", res["launches"],
+                        NORM_LAUNCHES["flagship_128"], 1)
+  for name in MODNORM:
+    records[name]["launches_by_path"]["ddp_world2_128"] = [
+        res["launches"][name] for res in results]
   images, captions = SHARDED_SHAPES[0]
   for name in ("word_scores_fwd", "word_scores_drn", "word_scores_dwn"):
     sub = records[name][f"sharded_{images}x{captions}"]
@@ -2709,7 +2970,8 @@ def train_reference(torch, records, card, workdir, flagship_steps, dev):
         f"g_spectral_norm={config.g_spectral_norm} (the reference layout), "
         f"{config.num_train_steps} steps, synthetic source", flush=True)
   counters = {"ntxent": ntxent.ntxent_stats, "ntxent_bwd": ntxent.ntxent_bwd,
-              "word_scores_fwd": ws.scores, "word_scores_drn": ws.drn}
+              "word_scores_fwd": ws.scores, "word_scores_drn": ws.drn,
+              **norm_counters()}
   updates = {"train_d": [], "train_g_d": []}
   originals = {name: getattr(xmc_gan, name) for name in updates}
 
@@ -2760,6 +3022,7 @@ def train_reference(torch, records, card, workdir, flagship_steps, dev):
     if count <= 0:
       fail(f"phase 10a: kernel {name} was not launched")
     records[name]["launches_by_path"]["reference_128"] = count
+  check_norm_launches("phase 10a", launches)
   for name, calls in updates.items():
     moved = [sum(not torch.equal(a, b) for a, b in zip(before, after))
              for before, after in calls]
@@ -3340,7 +3603,8 @@ def workdir_store_phase(torch, records, card, dev, flagship_steps):
         f"evaluate_continuously (eval_num {STORE_EVAL_NUM}), generate, "
         f"export_from_workdir; then a gs:// workdir", flush=True)
   counters = {"ntxent": ntxent.ntxent_stats, "ntxent_bwd": ntxent.ntxent_bwd,
-              "word_scores_fwd": ws.scores, "word_scores_drn": ws.drn}
+              "word_scores_fwd": ws.scores, "word_scores_drn": ws.drn,
+              **norm_counters()}
   memory = fsspec.filesystem("memory")
   home = os.getcwd()
   gs_conf = copy.deepcopy(fsspec.config.conf.get("gs"))
@@ -3597,6 +3861,9 @@ def main() -> None:
   print(f"phase 3c: kernels A-C at the 256 px path's microbatch of "
         f"{MICROBATCH_256}", flush=True)
   timed("phase 3c", check_kernels_microbatch, torch, records, MICROBATCH_256)
+  print("phase 3d: the modulated-norm kernels (family E) against their "
+        "plain stages at every norm shape of G, 128 and 256 px", flush=True)
+  timed("phase 3d", check_modnorm, torch, records)
   with tempfile.TemporaryDirectory() as workdir:
     timed("phase 4", train_flagship, torch, records, card, workdir, config)
     timed("phase 4c", train_256, torch, records, card,

@@ -144,6 +144,7 @@ def collectives_case(mesh):
 # ---------------------------------------------------------------------------
 
 OPS_BATCH, GROUP = 6, 2   # 3 rows a process at world 2: group 1 spans both
+MODULATION_TERMS = ("gamma_local", "gamma_dense", "beta_local", "beta_dense")
 
 
 def ops_inputs():
@@ -159,7 +160,12 @@ def ops_inputs():
       feat_a=normal(b, d), feat_b=normal(b, d),
       region=normal(b, regions, dim), word=normal(b, words, dim),
       max_len=rng.integers(2, words + 1, (b, 1)).astype(np.float32),
-      g=normal(b, b))
+      g=normal(b, b),
+      # The modulated norm's terms: local maps at factor 1, dense [b, c].
+      gamma_local=normal(b, c, hw, hw, scale=0.5),
+      gamma_dense=normal(b, c, scale=0.5),
+      beta_local=normal(b, c, hw, hw, scale=0.5),
+      beta_dense=normal(b, c, scale=0.5))
 
 
 def batch_norm(x, ct, scale, bias, group_size=-1):
@@ -179,6 +185,20 @@ def batch_norm(x, ct, scale, bias, group_size=-1):
   y.backward(torch.from_numpy(np.ascontiguousarray(ct)))
   return [t.detach().numpy().copy() for t in (
       y, xt.grad, bn.scale.grad, bn.bias.grad, bn.mean, bn.var)]
+
+
+def modulated_norm(x, ct, *terms):
+  """``(out, mean, var, dx, d gamma_local, d gamma_dense, d beta_local,
+  d beta_dense)`` of ``modulated_batch_norm`` with a ReLU for the
+  cotangent ``ct``."""
+  from xmcgan_image_generation_tpu_torch.ops.cuda import modulated_norm as mn
+
+  leaves = [torch.from_numpy(np.ascontiguousarray(t)).requires_grad_()
+            for t in (x,) + terms]
+  out, mean, var = mn.modulated_batch_norm(*leaves, relu=True)
+  out.backward(torch.from_numpy(np.ascontiguousarray(ct)))
+  return [t.detach().numpy().copy() for t in (out, mean, var)] + [
+      t.grad.numpy() for t in leaves]
 
 
 def nt_xent(feat_a, feat_b, **kw):
@@ -237,6 +257,8 @@ def ops_case(mesh):
                           **kw)
   out["sharded"] = sharded_word_scores(mesh, local["region"], local["word"],
                                        local["max_len"], inp["g"])
+  out["modulated_norm"] = modulated_norm(
+      local["x"], local["ct"], *(local[k] for k in MODULATION_TERMS))
   return out
 
 

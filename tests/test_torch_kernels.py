@@ -448,3 +448,195 @@ def test_gpu_word_scores_both_gradients(cuda, dtype, kind):
     ref = ref.float()
     assert float((got.float() - ref).abs().max()) <= rtol * float(
         ref.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The modulated-norm kernels (csrc/modulated_norm.cu).
+# ---------------------------------------------------------------------------
+
+# (rows, channels, side, factor or None for dense terms alone) of every
+# norm of G: 128 px at 56 rows (GenBlock_0/1's ConditionalBatchNorms, the
+# spatial blocks' and the final FusedSpatialModulations at factors 1-8),
+# 256 px at the microbatch of 128 (factors 1-16).
+NORM_SHAPES = [
+    (56, 1536, 4, None), (56, 1536, 8, None), (56, 768, 16, None),
+    (56, 768, 16, 1), (56, 384, 32, 2), (56, 192, 64, 4), (56, 96, 128, 8),
+    (128, 1536, 4, None), (128, 1536, 8, None), (128, 768, 16, None),
+    (128, 768, 16, 1), (128, 768, 32, 2), (128, 384, 64, 4),
+    (128, 192, 128, 8), (128, 96, 256, 16),
+]
+
+
+def _norm_inputs(device, shape, dtype=torch.bfloat16, seed=0,
+                 constant=True):
+  """x and (gamma_local, gamma_dense, beta_local, beta_dense) as G's
+  layers give them: x with channels of different means and scales and,
+  with ``constant``, one constant channel (its variance at or near 0,
+  where y amplifies the sums' last bits 316-fold)."""
+  n, c, side, factor = shape
+  gen = torch.Generator(device=device).manual_seed(seed)
+
+  def normal(*s, scale=1.0):
+    return scale * torch.randn(*s, device=device, generator=gen)
+
+  x = (normal(n, c, side, side) * (0.5 + normal(c).abs())[:, None, None]
+       + normal(c)[:, None, None])
+  if constant:
+    x[:, 0] = 0.37
+  local = None if factor is None else (n, c, side // factor, side // factor)
+  terms = [None if local is None else normal(*local, scale=0.3),
+           normal(n, c, scale=0.3),
+           None if local is None else normal(*local, scale=0.3),
+           normal(n, c, scale=0.3)]
+  return x.to(dtype), [t if t is None else t.to(dtype) for t in terms]
+
+
+def _tickets(device):
+  """The modulated-norm kernels' tickets for the current stream."""
+  from xmcgan_image_generation_tpu_torch.ops.cuda import modulated_norm as mn
+
+  return mn._tickets(device, torch.cuda.current_stream(device).cuda_stream)
+
+
+def _unfused(x, terms, factor, relu):
+  """The modules' own operations: BatchNorm, then the modulation."""
+  from xmcgan_image_generation_tpu_torch.ops import normalization
+  from xmcgan_image_generation_tpu_torch.ops.cuda import modulated_norm as mn
+
+  bn = normalization.BatchNorm(x.shape[1], dtype=x.dtype, device=x.device)
+  gl, gd, bl, bd = terms
+  out = (bn(x) * (mn.modulation(gl, gd, factor) + 1.0)
+         + mn.modulation(bl, bd, factor))
+  return torch.relu(out) if relu else out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", NORM_SHAPES, ids=str)
+def test_gpu_modnorm_forward_is_the_unfused_path(cuda, shape):
+  """Given the plain statistics, the output is the unfused bf16 path's bit
+  for bit (and the statistics BatchNorm's); the kernel's sums agree with
+  the plain ones to float32 summation order; two launches agree bit for
+  bit; the counters advance."""
+  from xmcgan_image_generation_tpu_torch.ops.cuda import modulated_norm as mn
+
+  factor = shape[3] or 1
+  x, terms = _norm_inputs(cuda, shape)
+  count = x.numel() // x.shape[1]
+  want_sums = mn.stats_plain(x)
+  # Each shape's first launch allocates the tickets anew, as a process's
+  # first launch does.
+  mn._tickets.cache_clear()
+  before = (mn.norm_stats.launches, mn.norm_apply.launches)
+  sums = mn.norm_stats(x)
+  assert torch.equal(sums, mn.norm_stats(x))
+  # f32 sums of up to 8.4 M bf16 values in other orders.
+  bound = 1e-5 * torch.stack([x.float().abs().sum((0, 2, 3)),
+                              x.float().square().sum((0, 2, 3))])
+  assert bool(((sums - want_sums).abs() <= bound + 1e-6).all())
+  for relu in (True, False):
+    out, mean, var = mn.norm_apply(x, want_sums, count, *terms, factor, relu)
+    again = mn.norm_apply(x, want_sums, count, *terms, factor, relu)[0]
+    assert torch.equal(out, again)
+    assert torch.equal(out, _unfused(x, terms, factor, relu))
+    want_mean, want_var, _, _ = mn._finalize(want_sums, count, 1e-5)
+    assert torch.equal(mean, want_mean) and torch.equal(var, want_var)
+  assert (mn.norm_stats.launches, mn.norm_apply.launches) == (
+      before[0] + 2, before[1] + 4)
+  assert int(_tickets(cuda).count_nonzero()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", NORM_SHAPES, ids=str)
+def test_gpu_modnorm_backward_kernels(cuda, shape):
+  """Each backward output against the plain stage on the same inputs:
+  the channel sums to float32 order, the terms' gradients (rounded to
+  bf16 once, against the plain stage's sums of bf16 products) and dx
+  within bf16 rounding; two launches bit for bit."""
+  from xmcgan_image_generation_tpu_torch.ops.cuda import modulated_norm as mn
+
+  factor = shape[3] or 1
+  x, terms = _norm_inputs(cuda, shape, seed=1)
+  dout = torch.randn(x.shape, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(2)
+                     ).to(x.dtype)
+  count = x.numel() // x.shape[1]
+  sums = mn.stats_plain(x)
+  mn._tickets.cache_clear()
+  before = (mn.norm_bwd_reduce.launches, mn.norm_bwd_dx.launches)
+  got = mn.norm_bwd_reduce(x, dout, sums, count, *terms, factor, True)
+  again = mn.norm_bwd_reduce(x, dout, sums, count, *terms, factor, True)
+  want = mn.bwd_reduce_plain(x, dout, sums, count, *terms, factor, True)
+  for g, a in zip(got, again):
+    assert g is None or torch.equal(g, a)
+  # The channel sums: f32 sums of up to 8.4 M products in other orders.
+  scale = float(want[0].abs().max())
+  assert float((got[0] - want[0]).abs().max()) <= 1e-4 * scale
+  for g, w in zip(got[1:], want[1:]):
+    if w is not None:
+      # One bf16 rounding of sums the two sides take in other orders.
+      torch.testing.assert_close(g.float(), w.float(), rtol=1e-2,
+                                 atol=1e-2 * float(w.float().abs().max()))
+  dx = mn.norm_bwd_dx(x, dout, sums, got[0], count, *terms, factor, True)
+  assert torch.equal(dx, mn.norm_bwd_dx(x, dout, sums, got[0], count,
+                                        *terms, factor, True))
+  want_dx = mn.bwd_dx_plain(x, dout, sums, got[0], count, *terms, factor,
+                            True)
+  torch.testing.assert_close(dx.float(), want_dx.float(), rtol=1e-2,
+                             atol=1e-2 * float(want_dx.float().abs().max()))
+  assert (mn.norm_bwd_reduce.launches, mn.norm_bwd_dx.launches) == (
+      before[0] + 2, before[1] + 2)
+  assert int(_tickets(cuda).count_nonzero()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_modnorm_function_against_autograd(cuda, dtype):
+  """The autograd function on the card against autograd through the
+  unfused modules, at 128 px's last norm (factor 8) and a 4 x 4 plane of
+  dense terms alone: the output, statistics and every gradient.  Without
+  the ReLU: the two sides take their sums in other orders, which moves
+  the few outputs next to 0 across it and so the mask (the ReLU's
+  gradient is held to the plain stage on the same sums above)."""
+  from xmcgan_image_generation_tpu_torch.ops.cuda import modulated_norm as mn
+
+  for seed, shape in enumerate([(56, 96, 128, 8), (56, 1536, 4, None)]):
+    factor = shape[3] or 1
+    x, terms = _norm_inputs(cuda, shape, dtype, seed=seed, constant=False)
+    ct = torch.randn(x.shape, device=cuda, dtype=dtype)
+    leaves = [[t if t is None else t.clone().requires_grad_()
+               for t in [x] + terms] for _ in range(2)]
+    got, mean, var = mn.modulated_batch_norm(*leaves[0], factor, False)
+    (got.float() * ct.float()).sum().backward()
+    want = _unfused(leaves[1][0], leaves[1][1:], factor, False)
+    (want.float() * ct.float()).sum().backward()
+    # float32: the sums' order, amplified up to |mean| / std-fold where x
+    # meets its mean; bf16: a rounding of the output and of dy.
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * float(want.detach().abs().max()))
+    torch.testing.assert_close(mean, x.float().mean((0, 2, 3)), rtol=1e-4,
+                               atol=1e-5)
+    for g, w in zip(leaves[0], leaves[1]):
+      if w is not None:
+        w = w.grad.float()
+        torch.testing.assert_close(g.grad.float(), w, rtol=tol * 4,
+                                   atol=tol * 4 * float(w.abs().max()))
+
+
+@pytest.mark.gpu
+def test_gpu_modnorm_streams_have_their_own_tickets(cuda):
+  """Launches on a side stream use tickets of their own, so two streams
+  never share a channel's counter, and give the default stream's sums."""
+  from xmcgan_image_generation_tpu_torch.ops.cuda import modulated_norm as mn
+
+  x, terms = _norm_inputs(cuda, NORM_SHAPES[6])
+  want = mn.norm_stats(x)
+  side = torch.cuda.Stream(cuda)
+  side.wait_stream(torch.cuda.current_stream(cuda))
+  with torch.cuda.stream(side):
+    got = mn.norm_stats(x)
+    side_tickets = _tickets(cuda)
+  torch.cuda.current_stream(cuda).wait_stream(side)
+  assert side_tickets.data_ptr() != _tickets(cuda).data_ptr()
+  assert torch.equal(got, want)
+  assert int(side_tickets.count_nonzero()) == 0

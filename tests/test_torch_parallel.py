@@ -150,6 +150,8 @@ def _one_process():
                                        use_pallas=True))):
     out[name] = td.word_loss(inp["region"], inp["word"], inp["max_len"],
                              **kw)
+  out["modulated_norm"] = td.modulated_norm(
+      inp["x"], inp["ct"], *(inp[k] for k in td.MODULATION_TERMS))
   return out
 
 
@@ -179,6 +181,18 @@ def test_batch_norm_world2_matches_world1(spawned, one_process, name):
   for r in res:
     for i in (4, 5):
       _close(r[name][i], want[i])
+
+
+def test_modulated_norm_world2_matches_world1(spawned, one_process):
+  """`modulated_batch_norm`'s sums over processes in both directions: the
+  output, the gradients of x and of every term by rows, and the global
+  statistics on both processes."""
+  res, want = spawned["ops"], one_process["modulated_norm"]
+  for i in (0, 3, 4, 5, 6, 7):
+    _close(_concat_rows(res, "modulated_norm", i), want[i], 1e-5)
+  for r in res:
+    for i in (1, 2):
+      _close(r["modulated_norm"][i], want[i])
 
 
 @pytest.mark.parametrize("name", ["ntxent", "ntxent_fused", "ntxent_group",

@@ -173,9 +173,9 @@ class _GenUpBlock(nn.Module):
   def _run(self, x: torch.Tensor, cond_in: torch.Tensor,
            cond_out: torch.Tensor) -> torch.Tensor:
     shortcut = x
-    x = F.relu(self.norms[0](x, cond_in))
+    x = self.norms[0](x, cond_in, relu=True)
     x = self.convs[0](x if self.scale_fuse else upsample(x))
-    x = F.relu(self.norms[1](x, cond_out))
+    x = self.norms[1](x, cond_out, relu=True)
     x = self.convs[1](x)
     if self.scale_fuse:
       shortcut = upsample(self.convs[2](shortcut))
@@ -237,9 +237,9 @@ class GenSpatialBlockFused(nn.Module):
   def forward(self, x: torch.Tensor, region_ctx: torch.Tensor,
               global_cond: torch.Tensor) -> torch.Tensor:
     shortcut = x
-    x = F.relu(self.FusedSpatialModulation_0(x, region_ctx, global_cond))
+    x = self.FusedSpatialModulation_0(x, region_ctx, global_cond, relu=True)
     x = self.Conv_0(x if self.scale_fuse else upsample(x))
-    x = F.relu(self.FusedSpatialModulation_1(x, region_ctx, global_cond))
+    x = self.FusedSpatialModulation_1(x, region_ctx, global_cond, relu=True)
     x = self.Conv_1(x)
     if self.scale_fuse:
       shortcut = upsample(self.Conv_2(shortcut))

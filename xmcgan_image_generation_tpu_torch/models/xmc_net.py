@@ -298,7 +298,8 @@ class Generator(nn.Module):
     if self.fused:
       for block in self.spatial_blocks:
         x = _run_block(block, x, region_context, global_cond)
-      x = self.FusedSpatialModulation_0(x, region_context, global_cond)
+      x = self.FusedSpatialModulation_0(x, region_context, global_cond,
+                                        relu=True)
     else:
       # The reference layout: concat(region context, tiled global
       # conditioning), upsampled once a block.
@@ -308,8 +309,8 @@ class Generator(nn.Module):
         spatial_cond_up = upsample(spatial_cond)
         x = _run_block(block, x, spatial_cond, spatial_cond_up)
         spatial_cond = spatial_cond_up
-      x = self.LocalConditionalBatchNorm_0(x, spatial_cond)
-    x = torch.tanh(out_conv(F.relu(x)))
+      x = self.LocalConditionalBatchNorm_0(x, spatial_cond, relu=True)
+    x = torch.tanh(out_conv(x))
     return ((x + 1.0) / 2.0).permute(0, 2, 3, 1)
 
 

@@ -59,6 +59,11 @@ SIGNATURES = {
     "xmc_word_scores_group_size": (_I,),
     "xmc_word_scores_record_floats": (),
     "xmc_word_scores_word_rows": (_I, _I),
+    "xmc_modnorm_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "xmc_modnorm_apply": (_P,) * 9 + (_I,) * 6 + (_F, _F, _P),
+    "xmc_modnorm_bwd_reduce": (_P,) * 14 + (_I,) * 6 + (_F, _F, _P),
+    "xmc_modnorm_bwd_dx": (_P,) * 9 + (_I,) * 6 + (_F, _F, _P),
+    "xmc_modnorm_partial_floats": (_I,) * 6,
 }
 
 

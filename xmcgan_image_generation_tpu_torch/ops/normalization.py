@@ -18,6 +18,14 @@ its statistics over contiguous groups of examples of the global batch, a
 group possibly spanning processes, and keeps the global statistics as
 running averages.  ``torch.nn.SyncBatchNorm`` is not used: its Welford
 statistics are another formula.
+
+The modulated norms (`ConditionalBatchNorm`, `LocalConditionalBatchNorm`,
+`FusedSpatialModulation`) compute ``BatchNorm(x) (gamma + 1) + beta`` and,
+with ``relu``, the block's ReLU after it.  On a CUDA tensor in train mode
+with the global-batch `BatchNorm` the whole chain is one autograd function
+over a hand-written kernel family (`ops.cuda.modulated_norm`); elsewhere
+(the CPU, eval mode and so the exported G, `GroupedBatchNorm`) it runs as
+these modules' separate operations.
 """
 
 from __future__ import annotations
@@ -27,8 +35,12 @@ from typing import Iterator, Optional
 
 import torch
 from torch import nn
+import torch.nn.functional as F
 
-from xmcgan_image_generation_tpu_torch.ops.pooling import upsample
+from xmcgan_image_generation_tpu_torch.ops.cuda.modulated_norm import (
+    modulated_batch_norm,
+    modulation,
+)
 from xmcgan_image_generation_tpu_torch.ops.spectral_norm import (
     Conv,
     Dense,
@@ -205,12 +217,28 @@ class _Modulated(nn.Module):
     self.add_module(self.norm_name, make_batch_norm(
         features, group_size, dtype=dtype, device=device))
 
-  def _modulate(self, x: torch.Tensor, emb: torch.Tensor,
-                expand) -> torch.Tensor:
-    gamma, beta = (expand(getattr(self, name)(emb))
-                   for name in self.layer_names)
-    x = getattr(self, self.norm_name)(x)
-    return x * (gamma + 1.0) + beta
+  def _gamma_beta(self, cond: torch.Tensor):
+    return (getattr(self, name)(cond) for name in self.layer_names)
+
+
+def takes_kernels(norm: BatchNorm, x: torch.Tensor) -> bool:
+  """Whether a modulated norm runs as `modulated_batch_norm`: for a CUDA
+  tensor in train mode with the global-batch `BatchNorm`."""
+  return x.is_cuda and norm.training and type(norm) is BatchNorm
+
+
+def _modulate(norm: BatchNorm, x: torch.Tensor, gamma, beta, factor: int,
+              relu: bool) -> torch.Tensor:
+  """``norm(x) (gamma + 1) + beta``, ReLU'd with ``relu``; ``gamma`` and
+  ``beta`` are (local, dense) pairs of `modulation` terms."""
+  if takes_kernels(norm, x):
+    out, mean, var = modulated_batch_norm(x, *gamma, *beta, factor, relu,
+                                          norm.epsilon)
+    norm._update(mean, var)
+    return out
+  out = norm(x) * (modulation(*gamma, factor) + 1.0) + modulation(
+      *beta, factor)
+  return F.relu(out) if relu else out
 
 
 class ConditionalBatchNorm(_Modulated):
@@ -228,8 +256,11 @@ class ConditionalBatchNorm(_Modulated):
                       dtype=dtype, device=device, generator=generator),
         dtype, device)
 
-  def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-    return self._modulate(x, emb, lambda v: v[:, :, None, None])
+  def forward(self, x: torch.Tensor, emb: torch.Tensor,
+              relu: bool = False) -> torch.Tensor:
+    gamma, beta = self._gamma_beta(emb)
+    return _modulate(getattr(self, self.norm_name), x, (None, gamma),
+                     (None, beta), 1, relu)
 
 
 class LocalConditionalBatchNorm(_Modulated):
@@ -248,8 +279,11 @@ class LocalConditionalBatchNorm(_Modulated):
                      dtype=dtype, device=device, generator=generator),
         dtype, device)
 
-  def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-    return self._modulate(x, cond, lambda v: v)
+  def forward(self, x: torch.Tensor, cond: torch.Tensor,
+              relu: bool = False) -> torch.Tensor:
+    gamma, beta = self._gamma_beta(cond)
+    return _modulate(getattr(self, self.norm_name), x, (gamma, None),
+                     (beta, None), 1, relu)
 
 
 class FusedSpatialModulation(nn.Module):
@@ -277,17 +311,9 @@ class FusedSpatialModulation(nn.Module):
     self.add_module(self.norm_name, make_batch_norm(
         features, group_size, dtype=dtype, device=device))
 
-  def _modulation(self, conv, dense, region_ctx, global_cond):
-    local = conv(region_ctx)
-    if self.factor > 1:
-      local = upsample(local, self.factor)
-    return local + dense(global_cond)[:, :, None, None]
-
   def forward(self, x: torch.Tensor, region_ctx: torch.Tensor,
-              global_cond: torch.Tensor) -> torch.Tensor:
-    gamma = self._modulation(self.gamma_ctx, self.gamma_global, region_ctx,
-                             global_cond)
-    beta = self._modulation(self.beta_ctx, self.beta_global, region_ctx,
-                            global_cond)
-    x = getattr(self, self.norm_name)(x)
-    return x * (gamma + 1.0) + beta
+              global_cond: torch.Tensor, relu: bool = False) -> torch.Tensor:
+    gamma = (self.gamma_ctx(region_ctx), self.gamma_global(global_cond))
+    beta = (self.beta_ctx(region_ctx), self.beta_global(global_cond))
+    return _modulate(getattr(self, self.norm_name), x, gamma, beta,
+                     self.factor, relu)
