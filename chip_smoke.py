@@ -3159,7 +3159,7 @@ def profile_layouts(torch, card, dev, ref_state, fused_weights):
   """Phase 10d: device time a step by group of the reference layout's
   outer step against the fused flagship's, in this call.  Each takes
   ``engine.step.train_step`` on one super-batch held on the card (the
-  loader is not on the device's path), a warm-up step and then
+  loader is not on the device's path), two warm-up steps and then
   ``PROFILE_STEPS`` steps under ``torch.profiler``: the reference from
   phase 10a's trained state, the fused one from phase 10b's bfloat16
   fused G with phase 10a's D."""
@@ -3204,7 +3204,10 @@ def profile_layouts(torch, card, dev, ref_state, fused_weights):
   for label, state, config in (("reference", ref_state, reference_config()),
                                ("fused", fused_state, fused_config)):
     t0 = time.perf_counter()
-    train_step(state, batch, config, additional_data)
+    # The warm-up, and on one card the capture of the updates' CUDA graphs
+    # (`engine.graphed`): the profiled steps replay them.
+    for _ in range(2):
+      train_step(state, batch, config, additional_data)
     torch.cuda.synchronize()
     seconds[f"{label} warm-up"] = time.perf_counter() - t0
 
@@ -3231,7 +3234,7 @@ def profile_layouts(torch, card, dev, ref_state, fused_weights):
   if not (ref[0] > 0 and fused[0] > 0):
     fail("phase 10d: the profiler saw no device time")
   print(f"phase 10d: device time an outer step ({PROFILE_STEPS} profiled "
-        f"steps after 1 warm-up, torch.profiler): reference layout "
+        f"steps after 2 warm-up, torch.profiler): reference layout "
         f"{ref[0]:.2f} ms, fused {fused[0]:.2f} ms, difference "
         f"{ref[0] - fused[0]:+.2f} ms; profiled wall {ref[2]:.2f} / "
         f"{fused[2]:.2f} ms a step ({card})", flush=True)

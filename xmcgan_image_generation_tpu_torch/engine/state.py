@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -29,6 +29,8 @@ class TrainState:
       ``batch_stats`` (G) and ``spectral_norm_stats`` (D).
     g_opt / d_opt: Adam over each network's parameters.
     ema_params: Polyak average of the generator's named parameters.
+    graphs: The updates' CUDA graphs (`engine.graphed.StepGraphs`), made
+      at the first step that takes them; None on the eager path.
   """
 
   step: int
@@ -37,6 +39,7 @@ class TrainState:
   g_opt: ScheduledAdam
   d_opt: ScheduledAdam
   ema_params: Dict[str, torch.Tensor]
+  graphs: Any = dataclasses.field(default=None, repr=False, compare=False)
 
 
 Schedule = Callable[[int], float]

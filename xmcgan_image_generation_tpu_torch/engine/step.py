@@ -10,6 +10,9 @@ Only then does each process take its share (`local_rows`): rows ``[i B
 + r B/N, i B + (r + 1) B/N)`` of D-step ``i`` on process ``r``, and the
 matching rows of each microbatch.  A process-local split would change
 which examples share a contrastive pool.
+
+On one CUDA card with one microbatch an update and no process group, the
+updates take their gradients from CUDA graphs (`engine.graphed`).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from xmcgan_image_generation_tpu_torch.engine import graphed
 from xmcgan_image_generation_tpu_torch.engine import registry
 from xmcgan_image_generation_tpu_torch.engine.state import TrainState
 from xmcgan_image_generation_tpu_torch.parallel import collectives
@@ -77,12 +81,14 @@ def train_step(state: TrainState, batch: Batch, config,
   G+D update, on consecutive sub-batches, by the update rules of the
   configuration's ``model_name`` (`registry.get_gan_algorithm`).
   ``batch`` is this process's host super-batch (the whole one without a
-  process group)."""
+  process group).  Where `engine.graphed.eligible` holds, the updates
+  replay the state's graphs (`engine.graphed.of`)."""
   gan_model = registry.get_gan_algorithm(config)
   n = config.d_step_per_g_step
   sub_batches = split_batch(collectives.gather_batch(batch), n)
+  graphs = graphed.of(state, config)
   for i in range(n - 1):
-    gan_model.train_d(state, sub_batches[i], config)
+    gan_model.train_d(state, sub_batches[i], config, graphs=graphs)
   metrics = gan_model.train_g_d(state, sub_batches[-1], config,
-                                additional_data)
+                                additional_data, graphs=graphs)
   return state, metrics

@@ -35,6 +35,11 @@ the leaves ``forward`` and ``backward`` (once a microbatch),
 ``reduce_grads`` (each microbatch's float32 sum, then the mean and the
 sum over processes), ``adam`` (each apply) and ``ema``; they record only
 while a profiler capture runs.
+
+On one card with one microbatch an update, `engine.step.train_step`
+hands the updates its `engine.graphed.StepGraphs` (``graphs``): each
+update's forward and backward then run as a captured CUDA graph, and
+Adam and the EMA as here.
 """
 
 from __future__ import annotations
@@ -89,7 +94,10 @@ def pretrained_contrastive(additional_data: Dict[str, Any],
 
   with torch.no_grad():
     real_out = logits(real_images)
-  fake_out = checkpoint(logits, fake_images, use_reentrant=False)
+  # The tower draws no random numbers: no RNG state to keep (a CUDA graph
+  # capture could not read it).
+  fake_out = checkpoint(logits, fake_images, use_reentrant=False,
+                        preserve_rng_state=False)
   loss, _, _ = contrastive_ops.nt_xent(real_out, fake_out)
   return loss
 
@@ -162,6 +170,16 @@ def _accumulated(fn, batch: Batch, config):
             {name: v / k for name, v in loss_sums.items()})
 
 
+def _update_grads(kind: str, fn, batch: Batch, config, graphs,
+                  bound: tuple = ()):
+  """`_accumulated`, or with ``graphs`` the update's graph of ``kind``
+  for ``config`` and the other objects ``bound`` that ``fn`` reads
+  (`engine.graphed.StepGraphs.run`)."""
+  if graphs is None:
+    return _accumulated(fn, batch, config)
+  return graphs.run(kind, fn, batch, (config,) + bound)
+
+
 def _joint_grads(state: TrainState, batch: Batch, config,
                  additional_data: Dict[str, Any]):
   """``((d_grads, g_grads), losses)`` of the joint update on one
@@ -191,18 +209,21 @@ def _joint_grads(state: TrainState, batch: Batch, config,
 
 
 def train_g_d(state: TrainState, batch: Batch, config,
-              additional_data: Optional[Dict[str, Any]] = None
-              ) -> Dict[str, torch.Tensor]:
+              additional_data: Optional[Dict[str, Any]] = None,
+              graphs=None) -> Dict[str, torch.Tensor]:
   """Joint G+D update on one (global) sub-batch; updates ``state`` in
-  place and returns the five losses (means over the microbatches)."""
+  place and returns the five losses (means over the microbatches).
+  ``graphs``: the state's `engine.graphed.StepGraphs`, or None for the
+  eager update."""
   additional_data = additional_data or {}
   g_net, d_net = state.generator, state.discriminator
   with tracing.span("gd_update"):
     g_net.train()
     d_net.train()
-    (d_grads, g_grads), loss_values = _accumulated(
-        lambda mb: _joint_grads(state, mb, config, additional_data), batch,
-        config)
+    (d_grads, g_grads), loss_values = _update_grads(
+        "joint", lambda mb: _joint_grads(state, mb, config, additional_data),
+        batch, config, graphs,
+        tuple(additional_data[k] for k in sorted(additional_data)))
     _apply(state.d_opt, list(d_net.parameters()), d_grads)
     _apply(state.g_opt, list(g_net.parameters()), g_grads)
 
@@ -231,17 +252,17 @@ def _critic_grads(state: TrainState, batch: Batch):
     return (_grads(d_loss, list(d_net.parameters())),), {}
 
 
-def train_d(state: TrainState, batch: Batch, config) -> None:
+def train_d(state: TrainState, batch: Batch, config, graphs=None) -> None:
   """Discriminator-only update (an extra critic step), in place.
 
   G runs forward in train mode without writing its state, neither its
   running statistics nor (with ``g_spectral_norm``) its ``u0``, for every
   microbatch, as the JAX critic step discards G's new collections; D's
-  spectral-norm state advances.
+  spectral-norm state advances.  ``graphs`` as in `train_g_d`.
   """
   with tracing.span("d_update"):
     state.generator.train()
     state.discriminator.train()
-    (d_grads,), _ = _accumulated(lambda mb: _critic_grads(state, mb),
-                                 batch, config)
+    (d_grads,), _ = _update_grads(
+        "critic", lambda mb: _critic_grads(state, mb), batch, config, graphs)
     _apply(state.d_opt, list(state.discriminator.parameters()), d_grads)

@@ -23,7 +23,10 @@ returns them and `clear` empties the record.  The step's spans: ``step``
 them the leaves, which never overlap: ``forward`` and ``backward`` (once
 a microbatch), ``reduce_grads`` (the float32 sums over microbatches and
 the sum over processes), ``adam`` (each optimizer's apply) and ``ema``.
-All are opened on the training thread.
+Where the updates run as CUDA graphs (`engine.graphed`), an update's
+``forward`` and ``backward`` give way to ``graph_replay`` (one replay),
+and ``graph_capture`` marks the capture, once an update; neither is a
+leaf.  All are opened on the training thread.
 """
 
 from __future__ import annotations
